@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU (H100).
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path
+and the fused G/D train step.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -8,23 +9,35 @@ Phases; any failure raises and exits non-zero, before the result lines:
  1. CUDA check; the card's name and power limit (nvidia-smi).
  2. Build the CUDA kernels from csrc/ with nvcc for sm_90a; build seconds and
     the ptxas register / spill lines.
- 3. Each kernel against its plain PyTorch version at the main path's shapes
-    (bucket 16), in bf16 and fp32: max error beside its tolerance, kernel ms,
+ 3. Each kernel against its plain PyTorch version at its main path's shapes
+    (batch 16), in bf16 and fp32: max error beside its tolerance, kernel ms,
     plain ms, the library yardstick's ms and the bound (bytes at 3.35 TB/s,
     flops at 67 TFLOP/s fp32 or 989 TFLOP/s bf16; NVIDIA's H100 SXM data).
-    Times are medians of 21 CUDA-event windows of 10 back-to-back launches,
-    queued behind a spin kernel so host overhead stays out.
- 4. End-to-end reference: a tiny-width model on the card (kernels) against
-    the same model on the CPU (plain versions), fp32 and bf16.
- 5. The main path: a full-width (PyramidGANConfig() defaults) random-init
-    model from a seed, served through GenerateService at the array level with
-    buckets (1, 16): three requests in bf16, then in fp32. Launch counters are
-    reset before this phase; each request must move them by the expected
-    counts (per G forward: attention +1, upsample +11, max pool +1 for the
-    attention KV; per VGG forward: max pool +5).
- 6. torch.profiler over single warm requests per bucket and dtype: device
-    time by kernel, the kernels' share, the device's busy share.
- 7. The `kernels` JSON line, the card line again, and last the device line.
+    The three forwards at the serving sites, the two backwards at the train
+    step's sites (max-pool backward bitwise, on tie-heavy inputs); the
+    attention Function's plain backward is timed beside them. Times are
+    medians of 21 CUDA-event windows of 10 back-to-back launches, queued
+    behind a spin kernel so host overhead stays out.
+ 4. End-to-end references: a tiny-width model on the card (kernels) against
+    the same model on the CPU (plain versions): generate in fp32 and bf16,
+    and two fp32 train steps (metrics, parameters, u/v, BN statistics).
+ 5. The serving path: a full-width (PyramidGANConfig() defaults) random-init
+    model from a seed, served through GenerateService at the array level
+    with buckets (1, 16): three requests in bf16, then in fp32. Launch
+    counters are reset before it; each request must move them by the
+    expected counts (per G forward: attention +1, upsample +11, max pool +1
+    for the attention KV; per VGG forward: max pool +5; no backward).
+ 6. The train path: the fused train step at full width, random init from
+    the seed, on synthetic batches of 16 with training masks, in bf16 then
+    fp32: 1 warm-up and 5 timed steps each (ms/step, images/s, peak memory),
+    then one bf16 step at batch 64 (peak memory). Launch counters are reset
+    before it; each step must move them by attention 5, upsample 22, max
+    pool 30, max-pool backward 14, upsample backward 11.
+ 7. torch.profiler over single warm requests per bucket and dtype, and over
+    one warm train step at batch 16 per dtype: device time by kernel and by
+    kind of op, the kernels' share, the device's busy share.
+ 8. The `kernels` JSON line (launches from the train path), the card line
+    again, and last the device line.
 
 Imports torch, numpy and the port only; needs one card and no network.
 """
@@ -48,6 +61,12 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 DTYPES = (torch.bfloat16, torch.float32)  # bf16 is the serving default
 G_PARAMETERS = 29_967_047  # the Generator at full width
+D_PARAMETERS = 16_820_994  # the Discriminator at full width
+LR = 1e-5  # the reference's learning rate
+TRAIN_STEPS = 6  # 1 warm-up + 5 timed
+TRAIN_LAUNCHES = {  # per train step (chip_smoke phase 6)
+    "pooled_kv_attention": 5, "upsample_2x": 22, "max_pool_2x2": 30,
+    "max_pool_2x2_backward": 14, "upsample_2x_backward": 11}
 
 
 def card_line() -> str:
@@ -83,30 +102,66 @@ def nbytes(*tensors) -> int:
 # ---------------------------------------------------------------- phase 3 --
 
 
+# A site is (shapes, dtype): the kernel's input shapes at one call of its
+# main path and the dtype it runs in there.
+
 def attention_sites(dtype):
     """Kernel 1 on one bucket-16 G forward: q (B,1024,32), k (B,256,32),
     v (B,256,128)."""
-    return [((BATCH, 1024, 32), (BATCH, 256, 32), (BATCH, 256, 128))]
+    return [(((BATCH, 1024, 32), (BATCH, 256, 32), (BATCH, 256, 128)), dtype)]
+
+
+VGG_POOLS = [(BATCH, 64, 256, 256), (BATCH, 128, 128, 128), (BATCH, 256, 64, 64),
+             (BATCH, 512, 32, 32), (BATCH, 512, 16, 16)]
+KV_POOL = (BATCH, 256, 32, 32)  # the attention KV pool of G and of D
 
 
 def pool_sites(dtype):
     """Kernel 2: the 5 VGG pools and the attention KV pool (NCHW shapes)."""
-    return [(BATCH, 64, 256, 256), (BATCH, 128, 128, 128), (BATCH, 256, 64, 64),
-            (BATCH, 512, 32, 32), (BATCH, 512, 16, 16), (BATCH, 256, 32, 32)]
+    return [(shape, dtype) for shape in VGG_POOLS + [KV_POOL]]
+
+
+def upsample_shapes(dtype):
+    """Kernel 3's inputs: main and residual upsample of the 5 blocks, then
+    the final block. In bf16 the residual runs up2(conv1x1(x)), so it
+    upsamples the block's output channels."""
+    blocks = [(512, 512, 4), (512, 512, 8), (512, 256, 16), (256, 128, 32),
+              (128, 64, 64)]
+    shapes = []
+    for cin, cout, hw in blocks:
+        shapes.append((BATCH, cin, hw, hw))
+        shapes.append((BATCH, cin if dtype == torch.float32 else cout, hw, hw))
+    shapes.append((BATCH, 64, 128, 128))
+    return shapes
 
 
 def upsample_sites(dtype):
-    """Kernel 3: main and residual upsample of the 5 blocks, then the final
-    block. In bf16 the residual runs up2(conv1x1(x)), so it upsamples the
-    block's output channels."""
-    blocks = [(512, 512, 4), (512, 512, 8), (512, 256, 16), (256, 128, 32),
-              (128, 64, 64)]
-    sites = []
-    for cin, cout, hw in blocks:
-        sites.append((BATCH, cin, hw, hw))
-        sites.append((BATCH, cin if dtype == torch.float32 else cout, hw, hw))
-    sites.append((BATCH, 64, 128, 128))
-    return sites
+    return [(shape, dtype) for shape in upsample_shapes(dtype)]
+
+
+def pool_backward_sites(dtype):
+    """Kernel 4 in one train step: the 5 VGG pools on the fakes (compute
+    dtype), the 5 loss pools on the fake features (fp32), the KV pool of D
+    on real and fake (D phase) and on fake (G phase), and of G (G phase)."""
+    loss = [(b, c, h // 2, w // 2) for b, c, h, w in VGG_POOLS]
+    return ([(shape, dtype) for shape in VGG_POOLS]
+            + [(shape, torch.float32) for shape in loss]
+            + [(KV_POOL, dtype)] * 4)
+
+
+def upsample_backward_sites(dtype):
+    """Kernel 5 in one train step: the gradients of the 11 upsample outputs
+    of the G phase's forward, (B, C, 2H, 2W)."""
+    return [((b, c, 2 * h, 2 * w), dtype)
+            for b, c, h, w in upsample_shapes(dtype)]
+
+
+def tie_heavy(shape, dtype, g):
+    """Post-ReLU values quantized to quarters in [0, 1.5]: most 2x2 windows
+    hold ties, as ReLU zeros and saturated activations make them."""
+    x = torch.randn(shape, generator=g, device=g.device).relu()
+    x = torch.clamp(torch.round(x * 4) / 4, max=1.5)
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
 
 
 def check_kernels(device) -> dict:
@@ -123,19 +178,35 @@ def check_kernels(device) -> dict:
         return torch.randn(shape, generator=g, device=device).to(
             dtype).contiguous(memory_format=memory_format)
 
-    def ulps(dtype, ref, n):
+    def ulps(ref, n):
         """n bf16 ulps of the largest |ref| (fp32 callers pass their own)."""
         return n * 2.0 ** -7 * ref.abs().max().item()
 
+    def pool_backward_args(shape, dtype):
+        b, c, h, w = shape
+        return [tie_heavy(shape, dtype, g),
+                randn((b, c, h // 2, w // 2), dtype, cl)]
+
+    def max_pool_library(x, grad):
+        _, indices = F.max_pool2d(x, 2, return_indices=True)
+        return lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+            grad, x, [2, 2], [2, 2], [0, 0], [1, 1], False, indices)
+
+    def upsample_library(grad):
+        b, c, h, w = grad.shape
+        return lambda: torch.ops.aten.upsample_bilinear2d_backward(
+            grad, [h, w], [b, c, h // 2, w // 2], True)
+
+    pallas = "semantic_pyramid_for_image_generation_tpu/ops/pallas/"
+    csrc = "semantic_pyramid_for_image_generation_torch/csrc/"
     specs = {
         "pooled_kv_attention": dict(
-            source="semantic_pyramid_for_image_generation_torch/csrc/attention.cu",
-            replaces="semantic_pyramid_for_image_generation_tpu/ops/pallas/attention.py:58",
+            source=csrc + "attention.cu", replaces=pallas + "attention.py:58",
             sites=attention_sites,
             make=lambda s, dt: [randn(x, dt) for x in s],
             kernel=attention.pooled_kv_attention,
             plain=attention.pooled_kv_attention_plain,
-            library=lambda q, k, v: F.scaled_dot_product_attention(
+            library=lambda q, k, v: lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=1.0),
             flops=lambda q, k, v: 2 * q.shape[0] * q.shape[1] * k.shape[1]
             * (q.shape[2] + v.shape[2]),
@@ -144,34 +215,59 @@ def check_kernels(device) -> dict:
             # fp32: only the summation order differs, but logits of ~25 carry
             # ~1e-6 relative error into exp; bf16: the plain version rounds p
             # to bf16 before p @ v and both round the output
-            tol=lambda dt, ref: 1e-4 if dt == torch.float32 else ulps(dt, ref, 2),
+            tol=lambda dt, ref: 1e-4 if dt == torch.float32 else ulps(ref, 2),
         ),
         "max_pool_2x2": dict(
-            source="semantic_pyramid_for_image_generation_torch/csrc/max_pool.cu",
-            replaces="semantic_pyramid_for_image_generation_tpu/ops/pallas/pool.py:123",
+            source=csrc + "max_pool.cu", replaces=pallas + "pool.py:123",
             sites=pool_sites,
             make=lambda s, dt: [randn(s, dt, cl)],
             kernel=pool.max_pool_2x2,
             plain=pool.max_pool_2x2_plain,
-            library=lambda x: F.max_pool2d(x, 2),
+            library=lambda x: lambda: F.max_pool2d(x, 2),
             flops=lambda x: 3 * x.numel() // 4,
             out_bytes=lambda x: x.numel() // 4 * x.element_size(),
             tol=lambda dt, ref: 0.0,  # bitwise
         ),
         "upsample_2x": dict(
-            source="semantic_pyramid_for_image_generation_torch/csrc/upsample.cu",
-            replaces="semantic_pyramid_for_image_generation_tpu/ops/pallas/resize.py:99",
+            source=csrc + "upsample.cu", replaces=pallas + "resize.py:99",
             sites=upsample_sites,
             make=lambda s, dt: [randn(s, dt, cl)],
             kernel=resize.upsample_2x,
             plain=resize.upsample_2x_plain,
-            library=lambda x: F.interpolate(x, scale_factor=2, mode="bilinear",
-                                            align_corners=True),
+            library=lambda x: lambda: F.interpolate(
+                x, scale_factor=2, mode="bilinear", align_corners=True),
             flops=lambda x: 6 * 4 * x.numel(),
             out_bytes=lambda x: 4 * x.numel() * x.element_size(),
             # fp32: a few ulps (FMA contraction, zero terms of the matrix
             # form); bf16: the plain version rounds between passes
-            tol=lambda dt, ref: 1e-5 if dt == torch.float32 else ulps(dt, ref, 2),
+            tol=lambda dt, ref: 1e-5 if dt == torch.float32 else ulps(ref, 2),
+        ),
+        "max_pool_2x2_backward": dict(
+            source=csrc + "max_pool.cu", replaces=pallas + "pool.py:167",
+            sites=pool_backward_sites,
+            make=pool_backward_args,
+            kernel=pool.max_pool_2x2_backward,
+            plain=pool.max_pool_2x2_backward_plain,
+            library=max_pool_library,
+            # compares and selects of the recomputed forward, the routing
+            flops=lambda x, grad: 10 * x.numel(),
+            out_bytes=lambda x, grad: x.numel() * x.element_size(),
+            tol=lambda dt, ref: 0.0,  # bitwise
+        ),
+        "upsample_2x_backward": dict(
+            source=csrc + "upsample.cu", replaces=pallas + "resize.py:151",
+            sites=upsample_backward_sites,
+            make=lambda s, dt: [randn(s, dt, cl)],
+            kernel=resize.upsample_2x_backward,
+            plain=resize.upsample_2x_backward_plain,
+            library=upsample_library,
+            # ~9 weighted taps per input element, two flops each
+            flops=lambda grad: 2 * 9 * grad.numel() // 4,
+            out_bytes=lambda grad: grad.numel() // 4 * grad.element_size(),
+            # fp32: summation order; bf16: the plain version rounds between
+            # its two passes, the kernel once
+            tol=lambda dt, ref: 1e-5 * max(1.0, ref.abs().max().item())
+            if dt == torch.float32 else ulps(ref, 2),
         ),
     }
 
@@ -183,32 +279,33 @@ def check_kernels(device) -> dict:
             row = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                    "library_ms": 0.0, "bound_ms": 0.0}
             bytes_s = flops_s = 0.0
-            for site in spec["sites"](dtype):
-                args = spec["make"](site, dtype)
+            sites = spec["sites"](dtype)
+            for shape, site_dtype in sites:
+                args = spec["make"](shape, site_dtype)
                 got = spec["kernel"](*args)
                 want = spec["plain"](*args)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
-                tol = spec["tol"](dtype, want.float())
+                tol = spec["tol"](site_dtype, want.float())
                 ok = (torch.equal(got, want) if tol == 0.0 else err <= tol)
-                print(f"  {name} {str(dtype)[6:]} {tuple(site)}: "
+                print(f"  {name} {str(site_dtype)[6:]} {tuple(shape)}: "
                       f"max_abs_err {err:.3g} (tol {tol:.3g}) "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     raise AssertionError(f"{name} disagrees with its plain "
-                                         f"version at {site} in {dtype}")
+                                         f"version at {shape} in {site_dtype}")
                 row["max_abs_err"] = max(row["max_abs_err"], err)
                 row["ms"] += time_ms(lambda: spec["kernel"](*args))
                 row["plain_ms"] += time_ms(lambda: spec["plain"](*args))
-                row["library_ms"] += time_ms(lambda: spec["library"](*args))
+                row["library_ms"] += time_ms(spec["library"](*args))
                 t_bytes = (nbytes(*args) + spec["out_bytes"](*args)) \
                     / HBM_BYTES_PER_S * 1e3
-                t_flops = spec["flops"](*args) / PEAK_FLOPS[dtype] * 1e3
+                t_flops = spec["flops"](*args) / PEAK_FLOPS[site_dtype] * 1e3
                 row["bound_ms"] += max(t_bytes, t_flops)
                 bytes_s += t_bytes
                 flops_s += t_flops
             row["bound_by"] = "bytes" if bytes_s >= flops_s else "operations"
-            row["sites"] = len(spec["sites"](dtype))
+            row["sites"] = len(sites)
             print(f"  {name} {str(dtype)[6:]} over {row['sites']} sites: "
                   f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                   f"library {row['library_ms']:.4f} ms, bound "
@@ -218,7 +315,29 @@ def check_kernels(device) -> dict:
             else:
                 entry["float32"] = row
         results[name] = entry
+    time_attention_backward(device, results["pooled_kv_attention"])
     return results
+
+
+def time_attention_backward(device, entry) -> None:
+    """The attention Function's backward is plain PyTorch (the JAX package's
+    `_bwd` is XLA einsums, not a Pallas kernel); its time at the train
+    step's site, per call, is recorded beside Kernel 1 as
+    `plain_backward_ms`."""
+    from semantic_pyramid_for_image_generation_torch.ops.cuda.attention import (
+        pooled_kv_attention_backward_plain,
+    )
+
+    g = torch.Generator(device).manual_seed(SEED)
+    for dtype in DTYPES:
+        (q, k, v), _ = attention_sites(dtype)[0]
+        args = [torch.randn(s, generator=g, device=device).to(dtype)
+                for s in (q, k, v, (q[0], q[1], v[2]))]
+        ms = time_ms(lambda: pooled_kv_attention_backward_plain(*args))
+        row = entry if dtype == torch.bfloat16 else entry["float32"]
+        row["plain_backward_ms"] = ms
+        print(f"  pooled_kv_attention plain backward {str(dtype)[6:]}: "
+              f"{ms:.4f} ms", flush=True)
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -270,6 +389,95 @@ def check_tiny_reference(device) -> None:
               f"{err:.3g} (tol {tol})", flush=True)
         if not (torch.isfinite(runs["cuda"]).all() and err <= tol):
             raise AssertionError(f"tiny end-to-end {dtype} disagrees")
+
+
+
+def check_tiny_train_step(device) -> None:
+    """Two fp32 train steps of a tiny model on the card (CUDA kernels)
+    against the same state, batches and noise on the CPU (plain versions),
+    held as tests/test_torch_train_step.py holds the port against JAX:
+    metrics rtol 2e-3 / atol 2e-5; parameters within 1e-2 * lr plus one fp32
+    ulp on all but 0.1% of the elements (Adam turns gradients at the fp32
+    noise floor into +-lr steps) and within 4 * lr on every element; u/v
+    1e-4; BN statistics 1e-6 + 3e-4 relative (the final BN's mean 2e-5)."""
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from semantic_pyramid_for_image_generation_torch.models.layers import (
+        advance_spectral_norm_,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        init_train_state,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        batch_to_device,
+        make_train_step,
+    )
+
+    cfg = PyramidGANConfig().tiny()
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED)
+    batches = []
+    for _ in range(2):
+        batch = synthetic_batch(cfg, 2, rng)
+        for key in ("noise_d", "noise_g"):
+            batch[key] = rng.standard_normal((2, cfg.latent_dim)).astype(
+                np.float32)
+        batches.append(batch)
+    states = {"cpu": init_train_state(cfg, cpu, lr=LR, seed=SEED)}
+    for net in (states["cpu"].generator, states["cpu"].discriminator):
+        advance_spectral_norm_(net, 10)
+    states["cuda"] = init_train_state(cfg, device, lr=LR)
+    for net in ("generator", "discriminator", "vgg"):
+        getattr(states["cuda"], net).load_state_dict(
+            getattr(states["cpu"], net).state_dict())
+    step = make_train_step()
+    metrics = {"cpu": [], "cuda": []}
+    for batch in batches:
+        for key, dev in (("cpu", cpu), ("cuda", device)):
+            _, m = step(states[key], batch_to_device(batch, dev))
+            metrics[key].append({k: float(v) for k, v in m.items()})
+    for i, (got, want) in enumerate(zip(metrics["cuda"], metrics["cpu"])):
+        for k, w in want.items():
+            if not abs(got[k] - w) <= 2e-5 + 2e-3 * abs(w):
+                raise AssertionError(f"tiny train step {i} {k}: card "
+                                     f"{got[k]} vs CPU {w}")
+    worst = {}
+    for net in ("generator", "discriminator"):
+        got = {k: v.cpu() for k, v in getattr(states["cuda"], net)
+               .state_dict().items()}
+        want = getattr(states["cpu"], net).state_dict()
+        off = total = 0
+        for key, w in want.items():
+            err = (got[key] - w).abs()
+            if key.endswith(("weight_u", "weight_v")):
+                tol = torch.full_like(w, 1e-4)
+            elif key.endswith(("running_mean", "running_var")):
+                atol = 2e-5 if key == "final_block.1.running_mean" else 1e-6
+                tol = atol + 3e-4 * w.abs()
+            elif key.endswith("num_batches_tracked"):
+                continue
+            else:
+                if err.max() > 4 * LR:
+                    raise AssertionError(f"tiny train {net} {key}: "
+                                         f"{err.max().item():.3g} > 4 lr")
+                bad = err > 1e-2 * LR + 2.0 ** -22 * w.abs()
+                off += int(bad.sum())
+                total += err.numel()
+                continue
+            if bool((err > tol).any()):
+                raise AssertionError(f"tiny train {net} {key}: max |card - "
+                                     f"CPU| {err.max().item():.3g}")
+        worst[net] = (off, total)
+        if off > 1e-3 * total:
+            raise AssertionError(f"tiny train {net}: {off} of {total} "
+                                 f"parameter elements off")
+    print(f"  tiny train step fp32, 2 steps: card vs CPU plain metrics ok "
+          f"(step 2 {metrics['cuda'][1]}); parameter elements off by more "
+          f"than 1% of a step: {worst}", flush=True)
 
 
 # ---------------------------------------------------------------- phase 5 --
@@ -350,7 +558,8 @@ def drive_main_path(device) -> dict:
                 delta = {k: after[k] - before[k] for k in after}
                 vgg_forwards = 1 + (class_id is None)
                 want = {"pooled_kv_attention": 1, "upsample_2x": 11,
-                        "max_pool_2x2": 5 * vgg_forwards + 1}
+                        "max_pool_2x2": 5 * vgg_forwards + 1,
+                        "max_pool_2x2_backward": 0, "upsample_2x_backward": 0}
                 if delta != want:
                     raise AssertionError(f"launches {delta}, expected {want}")
                 fakes = out["fakes"]
@@ -368,15 +577,181 @@ def drive_main_path(device) -> dict:
     return kernels.launch_counts()
 
 
-KERNEL_NAMES = ("attention_kernel", "max_pool_2x2_kernel", "upsample_2x_kernel")
+# ---------------------------------------------------------------- phase 6 --
+
+
+def full_width_train_states(device):
+    """(bf16 state, fp32 state): one random init from SEED at
+    PyramidGANConfig() widths, u/v advanced 10 power iterations, the same
+    weights in both compute dtypes."""
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.models.layers import (
+        advance_spectral_norm_,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        init_train_state,
+        param_count,
+    )
+
+    start = time.perf_counter()
+    cfg16 = PyramidGANConfig(compute_dtype="bfloat16")
+    s16 = init_train_state(cfg16, device, lr=LR, seed=SEED)
+    for net in (s16.generator, s16.discriminator):
+        advance_spectral_norm_(net, 10)
+    s32 = init_train_state(dataclasses.replace(cfg16, compute_dtype="float32"),
+                           device, lr=LR)
+    for net in ("generator", "discriminator", "vgg"):
+        getattr(s32, net).load_state_dict(getattr(s16, net).state_dict())
+    counts = (param_count(s16.generator), param_count(s16.discriminator))
+    print(f"  full-width train state (G {counts[0]:,}, D {counts[1]:,} "
+          f"parameters) built in {time.perf_counter() - start:.1f} s",
+          flush=True)
+    if counts != (G_PARAMETERS, D_PARAMETERS):
+        raise AssertionError(f"parameter counts {counts}")
+    return s16, s32
+
+
+def train_batches(config, batch, n, device):
+    """`n` synthetic batches (images, labels, training masks) from SEED,
+    made in bulk before any timing and moved to the card."""
+    from semantic_pyramid_for_image_generation_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        batch_to_device,
+    )
+
+    rng = np.random.default_rng(SEED)
+    return [batch_to_device(synthetic_batch(config, batch, rng), device)
+            for _ in range(n)]
+
+
+def drive_train_path(device) -> dict:
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        make_train_step,
+    )
+
+    s16, s32 = full_width_train_states(device)
+    step = make_train_step()
+    rng = torch.Generator(device).manual_seed(SEED)
+    results = {}
+    kernels.reset_launch_counts()
+    for state in (s16, s32):
+        dtype = state.generator.config.compute_dtype
+        batches = train_batches(state.generator.config, BATCH, TRAIN_STEPS,
+                                device)
+        g0 = state.generator.final_block[3].weight_orig.detach().clone()
+        d0 = state.discriminator.layers[0].main_block[0].weight_orig.detach(
+            ).clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for batch in batches:
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            _, metrics = step(state, batch, rng)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            after = kernels.launch_counts()
+            delta = {k: after[k] - before[k] for k in after}
+            if delta != TRAIN_LAUNCHES:
+                raise AssertionError(f"train step launches {delta}, expected "
+                                     f"{TRAIN_LAUNCHES}")
+            values = {k: float(v) for k, v in metrics.items()}
+            if not all(np.isfinite(v) for v in values.values()):
+                raise AssertionError(f"non-finite losses {values}")
+        if torch.equal(state.generator.final_block[3].weight_orig, g0) or \
+                torch.equal(state.discriminator.layers[0].main_block[0]
+                            .weight_orig, d0):
+            raise AssertionError("G or D parameters did not move")
+        ms = statistics.median(times[1:])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        results[dtype] = {"ms_per_step": ms, "images_per_s": BATCH * 1e3 / ms,
+                          "peak_gib": peak}
+        print(f"  train {dtype} batch {BATCH}: {ms:.2f} ms/step median of "
+              f"{len(times) - 1} (first {times[0]:.1f} ms; all "
+              f"{[round(t, 2) for t in times]}), {BATCH * 1e3 / ms:.1f} "
+              f"images/s, peak {peak:.2f} GiB, launches per step "
+              f"{delta}, last losses {values}", flush=True)
+    counts = kernels.launch_counts()
+    del s32
+    s16.g_optimizer.zero_grad(set_to_none=True)
+    s16.d_optimizer.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (batch,) = train_batches(s16.generator.config, 4 * BATCH, 1, device)
+    t0 = time.perf_counter()
+    _, metrics = step(s16, batch, rng)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError("non-finite losses at batch 64")
+    results["bfloat16_batch64"] = {"ms_first_step": ms, "peak_gib": peak}
+    print(f"  train bfloat16 batch {4 * BATCH}: one step {ms:.1f} ms "
+          f"(first at this shape), peak {peak:.2f} GiB", flush=True)
+    return counts
+
+
+KERNEL_NAMES = ("attention_kernel", "max_pool_2x2_kernel", "upsample_2x_kernel",
+                "max_pool_2x2_backward_kernel", "upsample_2x_backward_kernel")
+# device op kinds by name, first match wins
+OP_KINDS = (
+    ("port kernels", KERNEL_NAMES),
+    ("optimizer", ("multi_tensor_apply", "foreach", "fused_adam")),
+    ("convolution", ("xmma", "conv", "cudnn", "fft", "FFT", "implicit_gemm",
+                     "wgrad", "dgrad", "nhwcToNchw", "nchwToNhwc",
+                     "pointwise_mult_and_sum_complex")),
+    ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "Kernel2")),
+    ("copies", ("Memcpy", "Memset", "copy_kernel", "direct_copy")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized", "index", "scatter",
+                     "gather", "where")),
+)
+
+
+def profile_summary(label: str, run) -> None:
+    """torch.profiler over one call of `run` (warm): wall time, device busy
+    time and share, the port kernels' share of busy, the top 8 device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device ops only: a GPU-side user annotation (Optimizer.step#Adam.step)
+    # spans kernels counted on their own
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    ours = sum(t for name, t in by_name.items()
+               if any(k in name for k in KERNEL_NAMES))
+    print(f"  profile {label}: wall {wall_ms:.2f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} "
+          f"device ops, port kernels {ours:.3f} ms "
+          f"({100 * ours / max(busy_ms, 1e-9):.1f}% of busy)")
+    split: dict = {}
+    for name, t in by_name.items():
+        kind = next((k for k, keys in OP_KINDS if any(w in name for w in keys)),
+                    "other")
+        split[kind] = split.get(kind, 0.0) + t
+    print("    by kind: " + ", ".join(
+        f"{k} {t:.3f} ms" for k, t in sorted(split.items(), key=lambda x: -x[1])))
+    for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
+        print(f"      {t:8.3f} ms  {name[:100]}")
 
 
 def profile_requests(device) -> None:
-    """torch.profiler over one warm request per bucket and dtype;
-    device time by kernel name, the port's kernels' share, and the device's
-    busy share of the request's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """One warm request per bucket and dtype."""
     g16, v16, g32, v32 = build_full_width_models(device)
     image = request_image()
     for g, v in ((g16, v16), (g32, v32)):
@@ -386,26 +761,22 @@ def profile_requests(device) -> None:
                 image, level=level, class_id=class_id, num_samples=n)
             run()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                run()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            kernels = [e for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-            by_name: dict = {}
-            for e in kernels:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-            ours = sum(t for name, t in by_name.items()
-                       if any(k in name for k in KERNEL_NAMES))
-            print(f"  profile {g.config.compute_dtype} batch {n}: wall "
-                  f"{wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
-                  f"({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} device "
-                  f"ops, port kernels {ours:.3f} ms "
-                  f"({100 * ours / max(busy_ms, 1e-9):.1f}% of busy)")
-            for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
-                print(f"      {t:8.3f} ms  {name[:100]}")
+            profile_summary(f"{g.config.compute_dtype} batch {n}", run)
+
+
+def profile_train_step(device) -> None:
+    """One warm train step at batch 16, bf16 then fp32."""
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        make_train_step,
+    )
+
+    step = make_train_step()
+    for state in full_width_train_states(device):
+        batches = train_batches(state.generator.config, BATCH, 2, device)
+        step(state, batches[0])
+        torch.cuda.synchronize()
+        profile_summary(f"train step {state.generator.config.compute_dtype} "
+                        f"batch {BATCH}", lambda: step(state, batches[1]))
 
 
 def main() -> int:
@@ -427,21 +798,31 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("   ", line.strip())
 
-    print("[3] kernels against their plain versions (bucket 16)", flush=True)
+    print("[3] kernels against their plain versions (batch 16)", flush=True)
     kernels = check_kernels(device)
 
-    print("[4] tiny end-to-end reference", flush=True)
+    print("[4] tiny end-to-end references", flush=True)
     check_tiny_reference(device)
+    check_tiny_train_step(device)
 
-    print("[5] main path: full-width serving, bf16 then fp32", flush=True)
-    launches = drive_main_path(device)
-    for name, count in launches.items():
+    print("[5] serving path: full-width requests, bf16 then fp32", flush=True)
+    serving = drive_main_path(device)
+    for name, count in serving.items():
+        backward = name.endswith("_backward")
+        if (count == 0) != backward:
+            raise AssertionError(f"serving launched {name} {count} times")
+        kernels[name]["serving_launches"] = count
+
+    print("[6] train path: full-width train steps, bf16 then fp32", flush=True)
+    train = drive_train_path(device)
+    for name, count in train.items():
         if count == 0:
-            raise AssertionError(f"{name} was never launched on the main path")
+            raise AssertionError(f"{name} was never launched on the train path")
         kernels[name]["launches"] = count
 
-    print("[6] profile of single requests", flush=True)
+    print("[7] profiles of single requests and of one train step", flush=True)
     profile_requests(device)
+    profile_train_step(device)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line())

@@ -8,15 +8,17 @@ only (PIL lazily, for PNG encode/decode).
 
 Slice 1 ports the serving path: the frozen VGG-16 7-tap pyramid, the
 eval-mode Generator, the batch-bucketed artifact reader, the HTTP service and
-the generate / serve CLIs. The three TPU (Pallas) forward kernels on that
-path are hand-written CUDA C++ kernels under `csrc/`, bound through ctypes
-(`ops/cuda/`).
+the generate / serve CLIs. Slice 2 ports the fused G/D train step: the
+discriminator, the training-mode layers, the losses and the train state.
+The five TPU (Pallas) kernels on those paths (three forwards, two
+backwards) are hand-written CUDA C++ kernels under `csrc/`, bound through
+ctypes (`ops/cuda/`).
 
 Subpackages:
     ops      -- spectral norm, pooling, resampling, and the CUDA kernel wrappers
-    models   -- Generator (eval mode) and the VGG-16 pyramid
-    data     -- the semantic mask schedule
-    train    -- the eval-mode generate function
+    models   -- Generator, Discriminator and the VGG-16 pyramid
+    data     -- the semantic mask schedule and synthetic batches
+    train    -- the fused train step, its losses and state; eval-mode generate
     serving  -- the artifact reader and the HTTP service
     eval     -- sample grids
     utils    -- weight bridge from JAX parameters / reference `.pt` files

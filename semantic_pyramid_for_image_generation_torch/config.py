@@ -88,8 +88,23 @@ class PyramidGANConfig:
     def generator_attention_channels(self) -> int:
         return _scaled(256, self.channels_factor)
 
+    @property
+    def discriminator_block_channels(self) -> Tuple[Tuple[int, int], ...]:
+        """(in, out) of the discriminator's input block and 6 residual
+        blocks."""
+        c = lambda x: _scaled(x, self.channels_factor)  # noqa: E731
+        return ((self.out_channels, c(64)), (c(64), c(128)), (c(128), c(256)),
+                (c(256), c(256)), (c(256), c(256)), (c(256), c(512)),
+                (c(512), c(768)))
+
     def tiny(self) -> "PyramidGANConfig":
         """A width-reduced config for CPU tests."""
         return dataclasses.replace(
             self, channels_factor=8.0, vgg_width_factor=8, num_classes=16)
 
+
+# Training defaults of the reference (learning rate; weights of the semantic
+# reconstruction and diversity losses), as the JAX package's config has them.
+DEFAULT_LR = 1e-5
+DEFAULT_W_REC = 0.1
+DEFAULT_W_DIV = 0.1

@@ -1,4 +1,4 @@
-"""Eval-mode Generator and the frozen VGG-16 pyramid."""
+"""The Generator, the Discriminator and the frozen VGG-16 pyramid."""
 
 from __future__ import annotations
 
@@ -7,6 +7,9 @@ from typing import Optional, Tuple
 import torch
 
 from semantic_pyramid_for_image_generation_torch.config import PyramidGANConfig
+from semantic_pyramid_for_image_generation_torch.models.discriminator import (
+    Discriminator,
+)
 from semantic_pyramid_for_image_generation_torch.models.generator import (
     Generator,
 )
@@ -30,3 +33,14 @@ def make_models(config: PyramidGANConfig, device: torch.device,
     generator.to(memory_format=torch.channels_last).eval()
     vgg.to(memory_format=torch.channels_last).eval()
     return generator, vgg
+
+
+def make_discriminator(config: PyramidGANConfig, device: torch.device,
+                       rng: Optional[torch.Generator] = None) -> Discriminator:
+    """The Discriminator on `device`, in eval mode and channels_last memory;
+    with `rng` every weight is drawn from it, as `make_models` does."""
+    with torch.device(device):
+        discriminator = Discriminator(config)
+    if rng is not None:
+        initialize_(discriminator, rng)
+    return discriminator.to(memory_format=torch.channels_last).eval()

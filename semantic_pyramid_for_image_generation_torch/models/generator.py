@@ -1,4 +1,4 @@
-"""Semantic-pyramid generator, eval mode.
+"""Semantic-pyramid generator.
 
 Counterpart of the JAX package's models/generator.py. Pipeline: SN-Linear
 latent->latent; LinearBlock injecting masked fc8; LinearBlock injecting

@@ -1,32 +1,39 @@
-"""Generator building blocks, eval mode.
+"""Generator and discriminator building blocks, eval and training mode.
 
-Counterpart of the JAX package's models/layers.py for the serving path. The
-module tree and parameter names are the reference torch layout that the JAX
-package's `utils/pt_interop.py::export_generator_state_dict` emits
-(`weight_orig`, `weight_u`, `weight_v`, `main_block.3`,
-`residual_mapping.1`, ...), so exported and reference state dicts load with
-`strict=True`.
+Counterpart of the JAX package's models/layers.py. The module tree and
+parameter names are the reference torch layout that the JAX package's
+`utils/pt_interop.py::export_generator_state_dict` /
+`export_discriminator_state_dict` emit (`weight_orig`, `weight_u`,
+`weight_v`, `main_block.3`, `residual_mapping.1`, ...), so exported and
+reference state dicts load with `strict=True`.
 
 Tensors are NCHW-logical in `torch.channels_last` memory. Parameters stay
 float32 and are cast to the activations' dtype at apply; batch-norm
 arithmetic runs in float32 and casts back, as the JAX bf16 path does.
-Training-mode forwards (power iteration, batch statistics) arrive with the
-training slice; these modules raise in training mode.
+
+Training mode (`.train()`): every forward of a spectrally-normalized layer
+runs one power iteration and advances u/v; the batch norms normalize with
+batch statistics in JAX's formula and advance their running statistics. Eval
+mode reuses the stored u/v and running statistics.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from semantic_pyramid_for_image_generation_torch.ops.cuda.attention import (
-    pooled_kv_attention,
+    PooledKVAttentionFunction,
 )
-from semantic_pyramid_for_image_generation_torch.ops.pool import max_pool_2d
+from semantic_pyramid_for_image_generation_torch.ops.pool import (
+    avg_pool_2d,
+    global_avg_pool,
+    max_pool_2d,
+)
 from semantic_pyramid_for_image_generation_torch.ops.resize import (
     upsample_bilinear_align_corners,
 )
@@ -38,13 +45,6 @@ from semantic_pyramid_for_image_generation_torch.ops.spectral_norm import (
 )
 
 LEAKY_SLOPE = 0.2
-
-
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: only the eval-mode forward is ported; "
-            "call .eval() (training mode arrives with the training slice)")
 
 
 def lecun_normal_(weight: torch.Tensor,
@@ -59,10 +59,19 @@ def lecun_normal_(weight: torch.Tensor,
 class _SpectralNormLayer(nn.Module):
     """`weight_orig` / `bias` parameters and `weight_u` / `weight_v` buffers.
 
-    Eval mode divides by sigma = u^T W v with the stored vectors; the
-    normalized weight is computed once and cached in the non-persistent
-    buffer `weight_sn` (the JAX export folds sigma the same way). Loading a
-    state dict or re-initializing drops the cache."""
+    Training mode runs one power iteration per forward (none when
+    `spectral_update` is False, the train step's test switch) and divides by
+    sigma = u^T W v, differentiable in W with the new u/v held constant. The
+    new u/v are fresh tensors and the buffers are rebound to them, never
+    written into: autograd keeps the previous forward's u/v for its sigma
+    (the discriminator runs on real, then on fake, before one backward).
+
+    Eval mode divides by sigma with the stored vectors; the normalized
+    weight is computed once and cached in the non-persistent buffer
+    `weight_sn` (the JAX export folds sigma the same way). The cache is
+    keyed on the version counters of W, u and v, so an optimizer step, a
+    state-dict load or any other in-place update recomputes it, and every
+    training forward drops it."""
 
     def __init__(self, weight_shape, bias: bool):
         super().__init__()
@@ -73,6 +82,8 @@ class _SpectralNormLayer(nn.Module):
         self.register_buffer("weight_u", torch.empty(rows))
         self.register_buffer("weight_v", torch.empty(cols))
         self.register_buffer("weight_sn", None, persistent=False)
+        self._sn_versions = None
+        self.spectral_update = True
         self.initialize()
 
     @torch.no_grad()
@@ -84,15 +95,18 @@ class _SpectralNormLayer(nn.Module):
         for buf in (self.weight_u, self.weight_v):
             buf.copy_(l2_normalize(torch.randn(
                 buf.shape, generator=rng, device=buf.device)))
-        self.weight_sn = None
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self.weight_sn = None
-        super()._load_from_state_dict(*args, **kwargs)
 
     def normalized_weight(self) -> torch.Tensor:
-        _eval_only(self)
-        if self.weight_sn is None:
+        if self.training:
+            sigma, u, v = spectral_norm_weight(
+                weight_matrix(self.weight_orig), self.weight_u,
+                self.weight_v, update=self.spectral_update)
+            self.weight_u, self.weight_v = u, v
+            self.weight_sn = None
+            return self.weight_orig / sigma
+        versions = (self.weight_orig._version, self.weight_u._version,
+                    self.weight_v._version)
+        if self.weight_sn is None or self._sn_versions != versions:
             with torch.no_grad():
                 sigma, _, _ = spectral_norm_weight(
                     weight_matrix(self.weight_orig), self.weight_u,
@@ -101,10 +115,19 @@ class _SpectralNormLayer(nn.Module):
                 if weight.dim() == 4:
                     weight = weight.contiguous(memory_format=torch.channels_last)
                 self.weight_sn = weight
+                self._sn_versions = versions
         return self.weight_sn
 
     def _bias(self, dtype: torch.dtype) -> Optional[torch.Tensor]:
         return None if self.bias is None else self.bias.to(dtype)
+
+
+def fold_avg_pool(weight: torch.Tensor) -> torch.Tensor:
+    """(O, I, kh, kw) -> (O, I, kh+1, kw+1): the kernel whose stride-2 conv
+    equals avg_pool_2x2(conv(x)), by linearity (JAX `SNConv.fold_avg_pool`):
+    1/4 of the kernel summed over the four 2x2 window offsets."""
+    return 0.25 * sum(F.pad(weight, (dj, 1 - dj, di, 1 - di))
+                      for di in (0, 1) for dj in (0, 1))
 
 
 class SNConv2d(_SpectralNormLayer):
@@ -116,9 +139,15 @@ class SNConv2d(_SpectralNormLayer):
                          bias)
         self.padding = padding
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.normalized_weight().to(x.dtype)
-        return F.conv2d(x, w, self._bias(x.dtype), padding=self.padding)
+    def forward(self, x: torch.Tensor, pool: bool = False) -> torch.Tensor:
+        """conv(x); with `pool`, avg_pool_2x2(conv(x)) as one stride-2 conv of
+        the folded kernel (the JAX bf16 default in the discriminator)."""
+        w = self.normalized_weight()
+        if pool:
+            return F.conv2d(x, fold_avg_pool(w).to(x.dtype), self._bias(x.dtype),
+                            stride=2, padding=self.padding)
+        return F.conv2d(x, w.to(x.dtype), self._bias(x.dtype),
+                        padding=self.padding)
 
 
 class SNLinear(_SpectralNormLayer):
@@ -132,15 +161,54 @@ class SNLinear(_SpectralNormLayer):
                         self._bias(x.dtype))
 
 
+class SNEmbedding(_SpectralNormLayer):
+    """Spectrally-normalized class embedding of the discriminator's
+    projection: the row of table / sigma for each index. Iterates on the
+    (num_embeddings, features) table; the row select is exact, as JAX's
+    one-hot matmul is."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__((num_embeddings, features), bias=False)
+
+    @torch.no_grad()
+    def initialize(self, rng: Optional[torch.Generator] = None) -> None:
+        """flax init: N(0, 1) table, normalized N(0,1) u/v."""
+        super().initialize(rng)
+        nn.init.normal_(self.weight_orig, generator=rng)
+
+    def forward(self, index: torch.Tensor) -> torch.Tensor:
+        return self.normalized_weight()[index]
+
+
 def _channel(t: torch.Tensor) -> torch.Tensor:
     """(C,) or (B, C) -> broadcastable over (B, C, H, W)."""
     return t[..., None, None]
 
 
+def _moments(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, var) to normalize x with. Eval: bn's running statistics.
+    Training: batch statistics over (B, H, W) in float32, in JAX's formula
+    var = E[x^2] - E[x]^2, and one momentum step of bn's running mean and
+    unbiased running var (n = B*H*W), in JAX's order of operations."""
+    if not training:
+        return bn.running_mean, bn.running_var
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    var = (x32 * x32).mean(dim=(0, 2, 3)) - mean * mean
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    m = bn.momentum
+    with torch.no_grad():
+        bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1.0 - m) * bn.running_var
+                             + m * (var * (n / max(n - 1, 1))))
+    return mean, var
+
+
 class ConditionalBatchNorm(nn.Module):
-    """Class-conditional batch norm, eval mode: affine-free BN with running
-    statistics, then a per-class (scale, bias) row of an embedding table
-    initialized to (1, 0). Keys: `batch_norm.running_*`, `embedding.weight`."""
+    """Class-conditional batch norm: affine-free BN (momentum 0.001), then a
+    per-class (scale, bias) row of an embedding table initialized to (1, 0).
+    Keys: `batch_norm.running_*`, `embedding.weight`."""
 
     def __init__(self, features: int, num_classes: int,
                  momentum: float = 0.001, eps: float = 1e-5):
@@ -158,23 +226,23 @@ class ConditionalBatchNorm(nn.Module):
         self.batch_norm.reset_running_stats()
 
     def forward(self, x: torch.Tensor, class_onehot: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
         bn = self.batch_norm
-        inv = torch.rsqrt(bn.running_var + bn.eps)
-        y = (x.float() - _channel(bn.running_mean)) * _channel(inv)
+        mean, var = _moments(x, bn, self.training)
+        inv = torch.rsqrt(var + bn.eps)
+        y = (x.float() - _channel(mean)) * _channel(inv)
         row = self.embedding.weight[class_onehot.argmax(dim=-1)]
         scale, bias = row[:, :self.features], row[:, self.features:]
         return (_channel(scale) * y + _channel(bias)).to(x.dtype)
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d (affine, momentum 0.1), eval mode, float32 arithmetic in the
-    JAX order: (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+    """BatchNorm2d (affine, momentum 0.1), float32 arithmetic in the JAX
+    order: (x - mean) * (rsqrt(var + eps) * scale) + bias."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - _channel(self.running_mean)) * _channel(inv)
+        mean, var = _moments(x, self, self.training)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (x.float() - _channel(mean)) * _channel(inv)
         return (y + _channel(self.bias)).to(x.dtype)
 
 
@@ -214,7 +282,7 @@ class SelfAttention(nn.Module):
         q = _rows(self.query_convolution(x))
         k = _rows(self.key_convolution(pooled))
         v = _rows(self.value_convolution(pooled))
-        attn = pooled_kv_attention(q, k, v)  # (B, H*W, C/2)
+        attn = PooledKVAttentionFunction.apply(q, k, v)  # (B, H*W, C/2)
         attn = attn.reshape(b, h, w, c // 2).permute(0, 3, 1, 2)
         out = self.attention_convolution(attn)
         return self.gamma.to(x.dtype) * out + x
@@ -273,6 +341,63 @@ class LinearBlock(nn.Module):
         return linear(act(x)) + self.masked_feature_mapping(masked_features)
 
 
+class DiscriminatorInputResidualBlock(nn.Module):
+    """Input block: main SN3x3 -> lrelu -> SN3x3 -> avgpool2; residual
+    avgpool2 -> SN1x1 (the pool comes *before* the 1x1). In bf16 both pools
+    fold into their convs (SNConv2d(pool=True)), as the JAX bf16 default
+    does; float32 keeps the literal conv -> pool order."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.main_block = nn.ModuleList([
+            SNConv2d(in_channels, out_channels),
+            nn.LeakyReLU(LEAKY_SLOPE),
+            SNConv2d(out_channels, out_channels),
+        ])
+        self.residual_mapping = SNConv2d(in_channels, out_channels, 1,
+                                         padding=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv_1, act, conv_2 = self.main_block
+        y = act(conv_1(x))
+        if x.dtype == torch.float32:
+            return (avg_pool_2d(conv_2(y))
+                    + self.residual_mapping(avg_pool_2d(x)))
+        # conv1x1(avgpool(x)) is the folded 2x2 stride-2 conv of x
+        return conv_2(y, pool=True) + self.residual_mapping(x, pool=True)
+
+
+class DiscriminatorResidualBlock(nn.Module):
+    """Downsampling block: lrelu -> SN3x3 -> lrelu -> SN3x3, plus an SN1x1
+    residual, then avgpool2. In bf16 the pool distributes over the sum and
+    folds into both convs; float32 keeps the literal order."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.main_block = nn.ModuleList([
+            nn.LeakyReLU(LEAKY_SLOPE),
+            SNConv2d(in_channels, out_channels),
+            nn.LeakyReLU(LEAKY_SLOPE),
+            SNConv2d(out_channels, out_channels),
+        ])
+        self.residual_mapping = SNConv2d(in_channels, out_channels, 1,
+                                         padding=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        act_1, conv_1, act_2, conv_2 = self.main_block
+        y = act_2(conv_1(act_1(x)))
+        if x.dtype == torch.float32:
+            return avg_pool_2d(conv_2(y) + self.residual_mapping(x))
+        return conv_2(y, pool=True) + self.residual_mapping(x, pool=True)
+
+
+class GlobalAvgPool(nn.Module):
+    """nn.AdaptiveAvgPool2d((1, 1)) + flatten: (B, C, H, W) -> (B, C)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return global_avg_pool(x)
+
+
 @torch.no_grad()
 def advance_spectral_norm_(module: nn.Module, n_iter: int) -> None:
     """Run `n_iter` power iterations on every spectrally-normalized layer of
@@ -284,7 +409,14 @@ def advance_spectral_norm_(module: nn.Module, n_iter: int) -> None:
                                    m.weight_v, n_iter)
             m.weight_u.copy_(u)
             m.weight_v.copy_(v)
-            m.weight_sn = None
+
+
+def set_spectral_update_(module: nn.Module, update: bool) -> None:
+    """Whether training forwards of `module`'s spectrally-normalized layers
+    advance u/v (the default) or reuse the stored vectors."""
+    for m in module.modules():
+        if isinstance(m, _SpectralNormLayer):
+            m.spectral_update = update
 
 
 def initialize_(module: nn.Module, rng: Optional[torch.Generator] = None) -> None:

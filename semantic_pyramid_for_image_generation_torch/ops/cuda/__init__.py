@@ -1,9 +1,8 @@
-"""The port's hand-written CUDA kernels, one wrapper module each.
+"""The port's hand-written CUDA kernels, one wrapper module per source.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 version for CPU tensors only, and counts its launches in a module-level
-integer `launches`, so a run can show that its path went through the
-kernels.
+integer, so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -16,17 +15,21 @@ from semantic_pyramid_for_image_generation_torch.ops.cuda import (
     resize,
 )
 
+# kernel name -> (wrapper module, name of its launch counter)
 KERNELS = {
-    "pooled_kv_attention": attention,
-    "max_pool_2x2": pool,
-    "upsample_2x": resize,
+    "pooled_kv_attention": (attention, "launches"),
+    "max_pool_2x2": (pool, "launches"),
+    "upsample_2x": (resize, "launches"),
+    "max_pool_2x2_backward": (pool, "backward_launches"),
+    "upsample_2x_backward": (resize, "backward_launches"),
 }
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: module.launches for name, module in KERNELS.items()}
+    return {name: getattr(module, counter)
+            for name, (module, counter) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for module in KERNELS.values():
-        module.launches = 0
+    for module, counter in KERNELS.values():
+        setattr(module, counter, 0)

@@ -1,12 +1,16 @@
 """Kernel 1: pooled-KV attention forward (csrc/attention.cu), its plain
-version and its launch count.
+version, its launch count, and the autograd Function around it.
 
 Replaces the JAX package's Pallas `pooled_kv_attention` forward
 (ops/pallas/attention.py). fp32 runs the kernel too: its dots are full fp32
-FMAs, so the TPU's reason to route fp32 elsewhere does not arise.
+FMAs, so the TPU's reason to route fp32 elsewhere does not arise. The
+backward is the plain form of the JAX package's `_bwd`, which JAX computes
+with XLA einsums, not in a Pallas kernel.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -23,9 +27,10 @@ launches = 0  # kernel launches since the last reset (ops/cuda/__init__.py)
 
 def pooled_kv_attention_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T) v with fp32 logits and softmax, p cast to v's dtype
-    before p @ v, as the JAX kernel does."""
-    logits = torch.einsum("bqc,bkc->bqk", q.float(), k.float())
+    """softmax(q k^T) v with fp32 logits and softmax (float64 stays
+    float64), p cast to v's dtype before p @ v, as the JAX kernel does."""
+    wide = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bqc,bkc->bqk", q.to(wide), k.to(wide))
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bqk,bkc->bqc", p.to(v.dtype), v)
 
@@ -60,3 +65,37 @@ def pooled_kv_attention(q: torch.Tensor, k: torch.Tensor,
         "pooled_kv_attention")
     launches += 1
     return out
+
+
+def pooled_kv_attention_backward_plain(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of softmax(q k^T) v for the output gradient g, as the JAX
+    package's `_bwd`: recompute p in fp32 (float64 stays float64), then dv,
+    dp, dlogits, dq, dk in that precision, each cast to its input's dtype."""
+    wide = torch.promote_types(q.dtype, torch.float32)
+    qw, kw, vw, gw = (t.to(wide) for t in (q, k, v, g))
+    p = torch.softmax(torch.einsum("bqc,bkc->bqk", qw, kw), dim=-1)
+    dv = torch.einsum("bqk,bqc->bkc", p, gw)
+    dp = torch.einsum("bqc,bkc->bqk", gw, vw)
+    dlogits = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bqk,bkc->bqc", dlogits, kw)
+    dk = torch.einsum("bqk,bqc->bkc", dlogits, qw)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class PooledKVAttentionFunction(torch.autograd.Function):
+    """Kernel 1 forward (the plain version on the CPU); the plain backward
+    recomputes the attention map instead of saving it, as the JAX custom VJP
+    does."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v)
+        return pooled_kv_attention(q, k, v)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g: torch.Tensor):
+        return pooled_kv_attention_backward_plain(*ctx.saved_tensors, g)

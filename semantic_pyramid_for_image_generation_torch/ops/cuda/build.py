@@ -34,6 +34,8 @@ _SIGNATURES = {
     "spig_attention_forward": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "spig_max_pool_2x2": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
     "spig_upsample_2x": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
+    "spig_max_pool_2x2_backward": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "spig_upsample_2x_backward": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
     "spig_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -1,9 +1,10 @@
-"""Kernel 2: 2x2 / stride-2 max pool (csrc/max_pool.cu), its plain version
-and its launch count.
+"""Kernels 2 and 4: 2x2 / stride-2 max pool forward and backward
+(csrc/max_pool.cu), their plain versions, their launch counts and the
+autograd Function that joins them.
 
-Replaces the JAX package's Pallas `max_pool_2x2_pallas` forward
-(ops/pallas/pool.py). Tensors are NCHW-logical; the kernel reads
-`torch.channels_last` memory, i.e. NHWC.
+Kernel 2 replaces the JAX package's Pallas `max_pool_2x2_pallas` forward and
+Kernel 4 its backward `_mp_vjp_bwd` (ops/pallas/pool.py). Tensors are
+NCHW-logical; the kernels read `torch.channels_last` memory, i.e. NHWC.
 """
 
 from __future__ import annotations
@@ -16,7 +17,15 @@ from semantic_pyramid_for_image_generation_torch.ops.cuda.build import (
     library,
 )
 
-launches = 0  # kernel launches since the last reset (ops/cuda/__init__.py)
+# kernel launches since the last reset (ops/cuda/__init__.py)
+launches = 0  # Kernel 2, the forward
+backward_launches = 0  # Kernel 4, the backward
+
+
+def _check_shape(what: str, x: torch.Tensor) -> None:
+    if x.dim() != 4 or x.shape[2] % 2 or x.shape[3] % 2:
+        raise ValueError(f"{what}: need (B, C, H, W) with even H and W, "
+                         f"got {tuple(x.shape)}")
 
 
 def max_pool_2x2_plain(x: torch.Tensor) -> torch.Tensor:
@@ -30,9 +39,7 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """nn.MaxPool2d(2, 2) for any even H and W: the kernel for a CUDA tensor,
     the plain version for a CPU tensor. Bitwise equal in fp32 and bf16."""
     global launches
-    if x.dim() != 4 or x.shape[2] % 2 or x.shape[3] % 2:
-        raise ValueError(f"max_pool_2x2: need (B, C, H, W) with even H and W, "
-                         f"got {tuple(x.shape)}")
+    _check_shape("max_pool_2x2", x)
     if not _launch.runs_kernel("max_pool_2x2", x):
         return max_pool_2x2_plain(x)
     code = _launch.dtype_code("max_pool_2x2", x)
@@ -45,3 +52,74 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
         _launch.stream(x.device)), "max_pool_2x2")
     launches += 1
     return out
+
+
+def _balanced(eq_self: torch.Tensor, eq_other: torch.Tensor,
+              g: torch.Tensor) -> torch.Tensor:
+    """JAX's maximum transpose rule: all of g where only self attained the
+    max, g/2 on a tie, 0 where self did not."""
+    return torch.where(eq_self, torch.where(eq_other, g * 0.5, g),
+                       g.new_zeros(()))
+
+
+def max_pool_2x2_backward_plain(x: torch.Tensor,
+                                g: torch.Tensor) -> torch.Tensor:
+    """The gradient of `max_pool_2x2_plain` at x for the output gradient g,
+    by JAX's balanced-eq rule: recompute the forward, route g between the
+    two row maxima (column level), then inside each column (row level).
+    Computed in fp32 (float64 stays float64), returned in x's dtype."""
+    wide = torch.promote_types(x.dtype, torch.float32)
+    xw, gw = x.to(wide), g.to(wide)
+    x00, x01 = xw[:, :, 0::2, 0::2], xw[:, :, 0::2, 1::2]
+    x10, x11 = xw[:, :, 1::2, 0::2], xw[:, :, 1::2, 1::2]
+    m0, m1 = torch.maximum(x00, x10), torch.maximum(x01, x11)
+    out = torch.maximum(m0, m1)
+    ge = _balanced(m0 == out, m1 == out, gw)
+    go = _balanced(m1 == out, m0 == out, gw)
+    gx = torch.empty_like(xw)
+    gx[:, :, 0::2, 0::2] = _balanced(x00 == m0, x10 == m0, ge)
+    gx[:, :, 1::2, 0::2] = _balanced(x10 == m0, x00 == m0, ge)
+    gx[:, :, 0::2, 1::2] = _balanced(x01 == m1, x11 == m1, go)
+    gx[:, :, 1::2, 1::2] = _balanced(x11 == m1, x01 == m1, go)
+    return gx.to(x.dtype)
+
+
+def max_pool_2x2_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(x (B, C, H, W), g (B, C, H/2, W/2)) -> gx (B, C, H, W): the kernel for
+    CUDA tensors, the plain version for CPU tensors. Bitwise equal in fp32
+    and bf16. g may come in any layout (autograd hands over what the next
+    op produced); it is made channels_last before the launch."""
+    global backward_launches
+    _check_shape("max_pool_2x2_backward", x)
+    b, c, h, w = x.shape
+    if tuple(g.shape) != (b, c, h // 2, w // 2):
+        raise ValueError(f"max_pool_2x2_backward: g has shape "
+                         f"{tuple(g.shape)}, want {(b, c, h // 2, w // 2)}")
+    if not _launch.runs_kernel("max_pool_2x2_backward", x, g):
+        return max_pool_2x2_backward_plain(x, g)
+    code = _launch.dtype_code("max_pool_2x2_backward", x, g)
+    _launch.check_channels_last("max_pool_2x2_backward", x)
+    g = g.contiguous(memory_format=torch.channels_last)
+    gx = torch.empty((b, c, h, w), dtype=x.dtype, device=x.device,
+                     memory_format=torch.channels_last)
+    check(library().spig_max_pool_2x2_backward(
+        x.data_ptr(), g.data_ptr(), gx.data_ptr(), b, h, w, c, code,
+        _launch.stream(x.device)), "max_pool_2x2_backward")
+    backward_launches += 1
+    return gx
+
+
+class MaxPool2x2Function(torch.autograd.Function):
+    """Kernel 2 forward, Kernel 4 backward (plain versions on the CPU), as
+    `max_pool_2x2_pallas`'s custom VJP pairs them. Saves x, not indices."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        return max_pool_2x2(x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (x,) = ctx.saved_tensors
+        return max_pool_2x2_backward(x, g)

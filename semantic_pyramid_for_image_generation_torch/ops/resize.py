@@ -1,9 +1,9 @@
 """Resampling ops with torch semantics.
 
-Counterpart of the JAX package's ops/resize.py for the serving path: the
-generator's 2x align-corners bilinear upsample (Kernel 3 on CUDA), the
-align-corners interpolation matrix its plain version applies, and the
-host-side nearest resize of the mask pipeline.
+Counterpart of the JAX package's ops/resize.py: the generator's 2x
+align-corners bilinear upsample (Kernel 3 forward and Kernel 5 backward on
+CUDA), the align-corners interpolation matrix their plain versions apply,
+and the host-side nearest resize of the mask pipeline.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from semantic_pyramid_for_image_generation_torch.ops.cuda.resize import (
-    upsample_2x,
+    Upsample2xFunction,
 )
 
 
@@ -40,8 +40,10 @@ def _bilinear_matrix_align_corners(in_size: int, out_size: int) -> np.ndarray:
 
 def upsample_bilinear_align_corners(x: torch.Tensor) -> torch.Tensor:
     """nn.UpsamplingBilinear2d(scale_factor=2) on a (B, C, H, W) tensor, the
-    generator's only resize: Kernel 3 on CUDA, its plain version on the CPU."""
-    return upsample_2x(x.contiguous(memory_format=torch.channels_last))
+    generator's only resize, differentiable: Kernels 3 and 5 on CUDA, their
+    plain versions on the CPU."""
+    return Upsample2xFunction.apply(
+        x.contiguous(memory_format=torch.channels_last))
 
 
 def interpolate_nearest_np(x: np.ndarray, out_h: int, out_w: int) -> np.ndarray:

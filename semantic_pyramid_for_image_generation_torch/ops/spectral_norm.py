@@ -4,8 +4,8 @@ Counterpart of the JAX package's ops/spectral_norm.py. torch's
 `nn.utils.spectral_norm` keeps `weight_orig`, `weight_u` and `weight_v`; the
 port keeps the same three tensors under the same names, so reference and
 JAX-exported state dicts load unchanged. Eval mode reuses the stored u/v:
-sigma = u^T W v. The one power-iteration step is here for the training
-slice.
+sigma = u^T W v; a training-mode forward runs one power-iteration step
+first (models/layers.py).
 """
 
 from __future__ import annotations

@@ -1,0 +1,70 @@
+"""Training objectives, all in float32.
+
+Counterpart of the JAX package's train/losses.py:
+  * masked multi-level semantic reconstruction (L1 on 2x-max-pooled
+    features; the conv levels pool through Kernels 2 and 4 on CUDA),
+  * mini-batch diversity (latent L1 over image L1),
+  * LSGAN generator and discriminator least-squares objectives.
+
+Every loss is a plain mean, as the JAX package reduces them.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from semantic_pyramid_for_image_generation_torch.ops.pool import (
+    max_pool_1d,
+    max_pool_2d,
+)
+
+
+def semantic_reconstruction_loss(features_real: Sequence[torch.Tensor],
+                                 features_fake: Sequence[torch.Tensor],
+                                 masks: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Sum over pyramid levels of mean(|real - fake| * mask) after 2x max
+    pooling of features AND masks. Conv levels are (B, C, H, W) with
+    (B, 1, H, W) masks broadcasting over channels; vector levels pool pairwise
+    along the feature axis."""
+    if not len(features_real) == len(features_fake) == len(masks):
+        raise ValueError("features and masks must have the same levels")
+    loss = torch.zeros((), dtype=torch.float32, device=masks[0].device)
+    for real, fake, mask in zip(features_real, features_fake, masks):
+        real, fake, mask = real.float(), fake.float(), mask.float()
+        pool = max_pool_2d if real.dim() == 4 else max_pool_1d
+        real, fake, mask = pool(real), pool(fake), pool(mask)
+        loss = loss + torch.mean(torch.abs(real - fake) * mask)
+    return loss
+
+
+def diversity_loss(images_fake: torch.Tensor,
+                   latents: torch.Tensor) -> torch.Tensor:
+    """L1(z1, z2) / (L1(img1, img2) + 1e-8) over the two batch halves; pushes
+    distinct noises to distinct images."""
+    b = images_fake.shape[0]
+    if b < 2:
+        raise ValueError("the diversity loss needs a batch of at least 2")
+    half = b // 2
+    img1 = images_fake[:half].float()
+    img2 = images_fake[half:2 * half].float()
+    z1 = latents[:half].float()
+    z2 = latents[half:2 * half].float()
+    l1_latent = torch.mean(torch.abs(z1 - z2))
+    l1_images = torch.mean(torch.abs(img1 - img2))
+    return l1_latent / (l1_images + 1e-8)
+
+
+def lsgan_generator_loss(prediction_fake: torch.Tensor) -> torch.Tensor:
+    """0.5 * mean((D(fake) - 1)^2)."""
+    return 0.5 * torch.mean(torch.square(prediction_fake.float() - 1.0))
+
+
+def lsgan_discriminator_loss(prediction_real: torch.Tensor,
+                             prediction_fake: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(real part, fake part), summed by the caller."""
+    loss_real = 0.5 * torch.mean(torch.square(prediction_real.float() - 1.0))
+    loss_fake = 0.5 * torch.mean(torch.square(prediction_fake.float()))
+    return loss_real, loss_fake

@@ -1,0 +1,87 @@
+"""The train state: the three networks, the two optimizers and the step.
+
+Counterpart of the JAX package's train/state.py. There the whole state is
+one pytree threaded through a pure step; here the networks hold their own
+mutable state (parameters, spectral u/v buffers, batch-norm running
+statistics) and the train step advances it in place, in the JAX order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+
+from semantic_pyramid_for_image_generation_torch.config import (
+    DEFAULT_LR,
+    PyramidGANConfig,
+)
+from semantic_pyramid_for_image_generation_torch.models import (
+    make_discriminator,
+    make_models,
+)
+from semantic_pyramid_for_image_generation_torch.models.discriminator import (
+    Discriminator,
+)
+from semantic_pyramid_for_image_generation_torch.models.generator import (
+    Generator,
+)
+from semantic_pyramid_for_image_generation_torch.models.vgg16 import VGG16
+from semantic_pyramid_for_image_generation_torch.utils.pt_interop import (
+    discriminator_state_dict_from_flax,
+    generator_state_dict_from_flax,
+    vgg16_state_dict_from_flax,
+)
+
+
+@dataclasses.dataclass
+class TrainState:
+    generator: Generator
+    discriminator: Discriminator
+    vgg: VGG16  # frozen feature extractor
+    g_optimizer: torch.optim.Adam
+    d_optimizer: torch.optim.Adam
+    step: int = 0
+
+
+def make_optimizers(generator: nn.Module, discriminator: nn.Module,
+                    lr: float = DEFAULT_LR
+                    ) -> Tuple[torch.optim.Adam, torch.optim.Adam]:
+    """Adam with torch defaults (b1 0.9, b2 0.999, eps 1e-8), one per net:
+    the update optax.adam makes."""
+    return tuple(torch.optim.Adam(net.parameters(), lr=lr, betas=(0.9, 0.999),
+                                  eps=1e-8)
+                 for net in (generator, discriminator))
+
+
+def init_train_state(config: PyramidGANConfig, device: torch.device,
+                     lr: float = DEFAULT_LR, seed: int = 0,
+                     g_variables: Optional[Mapping[str, Any]] = None,
+                     d_variables: Optional[Mapping[str, Any]] = None,
+                     vgg_variables: Optional[Mapping[str, Any]] = None
+                     ) -> TrainState:
+    """The three networks on `device`, random-init from `seed` with the flax
+    initializers, or bridged from JAX variables (`{params, spectral,
+    batch_stats}` trees of arrays, as the JAX package's state holds them).
+    G and D are in training mode; the VGG is frozen (eval mode, no
+    parameter gradients) but stays differentiable in its input."""
+    rng = torch.Generator(device).manual_seed(seed)
+    generator, vgg = make_models(config, device, rng)
+    discriminator = make_discriminator(config, device, rng)
+    bridges = ((generator, g_variables, generator_state_dict_from_flax),
+               (discriminator, d_variables, discriminator_state_dict_from_flax),
+               (vgg, vgg_variables, vgg16_state_dict_from_flax))
+    for module, variables, bridge in bridges:
+        if variables is not None:
+            module.load_state_dict(bridge(variables), strict=True)
+    vgg.requires_grad_(False)
+    generator.train()
+    discriminator.train()
+    g_optimizer, d_optimizer = make_optimizers(generator, discriminator, lr)
+    return TrainState(generator, discriminator, vgg, g_optimizer, d_optimizer)
+
+
+def param_count(module: nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())

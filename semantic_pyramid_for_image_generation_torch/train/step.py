@@ -1,23 +1,39 @@
-"""The eval-mode generate function.
+"""The fused G/D train step and the eval-mode generate function.
 
-Counterpart of the JAX package's train/step.py for the serving path:
-`ensure_m11_images` and `make_generate_fn`. The fused train step joins this
-file with the training slice.
+Counterpart of the JAX package's train/step.py: `ensure_m11_images`,
+`make_train_step` and `make_generate_fn`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from semantic_pyramid_for_image_generation_torch.config import (
+    DEFAULT_W_DIV,
+    DEFAULT_W_REC,
+)
 from semantic_pyramid_for_image_generation_torch.models.generator import (
     Generator,
 )
+from semantic_pyramid_for_image_generation_torch.models.layers import (
+    set_spectral_update_,
+)
 from semantic_pyramid_for_image_generation_torch.models.vgg16 import VGG16
+from semantic_pyramid_for_image_generation_torch.train.losses import (
+    diversity_loss,
+    lsgan_discriminator_loss,
+    lsgan_generator_loss,
+    semantic_reconstruction_loss,
+)
+from semantic_pyramid_for_image_generation_torch.train.state import TrainState
 from semantic_pyramid_for_image_generation_torch.utils.device import (
     exact_float32,
 )
+
+Batch = Dict[str, Any]  # images (B,H,W,3), labels (B,classes), masks: 7-tuple
 
 
 def ensure_m11_images(images: torch.Tensor) -> torch.Tensor:
@@ -37,6 +53,107 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def _float_masks(masks: Sequence[torch.Tensor]) -> list:
+    """Masks as float, conv levels (B, h, w, 1) as the (B, 1, h, w) view."""
+    return [_nchw(m.float()) if m.dim() == 4 else m.float() for m in masks]
+
+
+def batch_to_device(batch: Mapping[str, Any], device: torch.device) -> Batch:
+    """A numpy batch (data/synthetic.py, or the same keys from a loader) as
+    tensors on `device`; the masks stay a tuple."""
+    def put(a):
+        return torch.as_tensor(np.asarray(a)).to(device)
+    out = {k: put(v) for k, v in batch.items() if k != "masks"}
+    out["masks"] = tuple(put(m) for m in batch["masks"])
+    return out
+
+
+def make_train_step(w_rec: float = DEFAULT_W_REC,
+                    w_div: float = DEFAULT_W_DIV,
+                    spectral_update: bool = True
+                    ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """Build the fused `(state, batch, rng) -> (state, metrics)` step.
+
+    One step, in the JAX package's state-advance order:
+      1. the frozen VGG-16 pyramid of the real batch (no gradients);
+      2. D phase: a no-grad, training-mode G forward on noise_d (advances
+         G's u/v and batch-norm statistics), D on real then on fake (two
+         advances of D's u/v), the LSGAN D loss, an Adam step of D;
+      3. G phase: G with gradients on noise_g (G's second advance), the
+         *updated* D on the fakes (D's third advance), a second VGG forward
+         on the fakes, the LSGAN, diversity and masked semantic
+         reconstruction losses, and an Adam step of G. The backward computes
+         G's parameter gradients only.
+
+    `state` is updated in place (networks, optimizers, `step`) and returned
+    with the five metrics under the reference logger's names, as 0-d
+    float32 tensors on the device. `batch` holds tensors on the networks'
+    device (`batch_to_device`); it may pin the per-phase latents as
+    `noise_d` / `noise_g`, else they are drawn from `rng` (a
+    torch.Generator on the device; None uses torch's global generator).
+
+    spectral_update: the test switch of the JAX step; False freezes u/v
+    (every sigma reuses the stored vectors). float32 runs without TF32 in
+    the forward and the backward (`exact_float32`)."""
+
+    def train_step(state: TrainState, batch: Batch,
+                   rng: Optional[torch.Generator] = None):
+        generator, discriminator, vgg = (state.generator, state.discriminator,
+                                         state.vgg)
+        generator.train()
+        discriminator.train()
+        vgg.eval()
+        for net in (generator, discriminator):
+            set_spectral_update_(net, spectral_update)
+        images = _nchw(ensure_m11_images(batch["images"]))
+        labels = batch["labels"].float()
+        masks = _float_masks(batch["masks"])
+        b, latent_dim = images.shape[0], generator.config.latent_dim
+
+        def noise(key: str) -> torch.Tensor:
+            if batch.get(key) is not None:
+                return batch[key].float()
+            return torch.randn((b, latent_dim), generator=rng,
+                               device=images.device)
+
+        with exact_float32():
+            # ---- the frozen-VGG pyramid of the real batch
+            with torch.no_grad():
+                features_real = vgg(images)
+            # ---- discriminator phase
+            noise_d = noise("noise_d")
+            with torch.no_grad():
+                fake_d = generator(noise_d, features_real, masks, labels)
+            loss_d_real, loss_d_fake = lsgan_discriminator_loss(
+                discriminator(images, labels), discriminator(fake_d, labels))
+            state.d_optimizer.zero_grad(set_to_none=True)
+            (loss_d_real + loss_d_fake).backward()
+            state.d_optimizer.step()
+            # ---- generator phase (sees the updated discriminator)
+            noise_g = noise("noise_g")
+            fake = generator(noise_g, features_real, masks, labels)
+            loss_g = lsgan_generator_loss(discriminator(fake, labels))
+            loss_div = w_div * diversity_loss(fake, noise_g)
+            loss_rec = w_rec * semantic_reconstruction_loss(
+                features_real, vgg(fake), masks)
+            state.g_optimizer.zero_grad(set_to_none=True)
+            (loss_g + loss_div + loss_rec).backward(
+                inputs=list(generator.parameters()))
+            state.g_optimizer.step()
+        state.step += 1
+        metrics = {
+            # the reference logger's names
+            "loss_discriminator_real": loss_d_real,
+            "loss_discriminator_fake": loss_d_fake,
+            "loss_generator": loss_g,
+            "loss_generator_semantic_reconstruction": loss_rec,
+            "loss_generator_diversity": loss_div,
+        }
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
 def make_generate_fn(generator: Generator, vgg: VGG16) -> Callable:
     """Eval-mode sampler: (images, masks, labels, noise) -> fakes.
 
@@ -51,8 +168,7 @@ def make_generate_fn(generator: Generator, vgg: VGG16) -> Callable:
                  labels: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode(), exact_float32():
             features = vgg(_nchw(ensure_m11_images(images)))
-            masks = [_nchw(m.float()) if m.dim() == 4 else m.float()
-                     for m in masks]
+            masks = _float_masks(masks)
             fakes = generator(noise.float(), features, masks, labels.float())
             return fakes.permute(0, 2, 3, 1)
 

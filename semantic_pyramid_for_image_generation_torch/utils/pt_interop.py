@@ -3,9 +3,9 @@ the port's state dicts.
 
 The JAX package's variables are nested dicts of arrays (`params`,
 `spectral`, `batch_stats`; a JAX serving artifact's `weights.npz` holds the
-same trees under `g/` and `vgg/`). The mapping below is an own copy of the
-JAX package's `utils/pt_interop.py::_Exporter`, which emits the reference
-torch layout; the port's modules use that layout, so the result loads with
+same trees under `g/` and `vgg/`). The mappings below are an own copy of the
+JAX package's `utils/pt_interop.py::_Exporter` and its generator and
+discriminator exports, which emit the reference torch layout; the port's modules use that layout, so the result loads with
 `strict=True`, and a reference `.pt` loads directly.
 
 Layouts: flax conv HWIO -> torch OIHW; flax dense (in, out) -> torch
@@ -74,6 +74,10 @@ class _Exporter:
         self.sd[f"{dst}.bias"] = _t(self.params[f"{src}/bias"])
         self._spectral(src, dst)
 
+    def sn_embedding(self, src: str, dst: str) -> None:
+        self.sd[f"{dst}.weight_orig"] = _t(self.params[f"{src}/embedding"])
+        self._spectral(src, dst)
+
     def cbn(self, src: str, dst: str) -> None:
         self.sd[f"{dst}.embedding.weight"] = _t(self.params[f"{src}/embedding"])
         self.sd[f"{dst}.batch_norm.running_mean"] = _t(self.stats[f"{src}/mean"])
@@ -119,6 +123,27 @@ def generator_state_dict_from_flax(
     e.bn("final_bn", "final_block.1")
     e.sn_conv("final_conv_1", "final_block.3")
     e.sn_conv("final_conv_2", "final_block.5")
+    return e.sd
+
+
+def discriminator_state_dict_from_flax(
+        variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX Discriminator variables {params, spectral} -> the port's
+    Discriminator state dict (the reference key layout)."""
+    e = _Exporter(variables)
+    e.sn_conv("block_0/conv_1", "layers.0.main_block.0")
+    e.sn_conv("block_0/conv_2", "layers.0.main_block.2")
+    e.sn_conv("block_0/residual_conv", "layers.0.residual_mapping")
+    # layers indices 1, 2, 4-7 are residual blocks; 3 is attention
+    for block_idx, path_idx in enumerate((1, 2, 4, 5, 6, 7), start=1):
+        src, dst = f"block_{block_idx}", f"layers.{path_idx}"
+        e.sn_conv(f"{src}/conv_1", f"{dst}.main_block.1")
+        e.sn_conv(f"{src}/conv_2", f"{dst}.main_block.3")
+        e.sn_conv(f"{src}/residual_conv", f"{dst}.residual_mapping")
+    e.attention("self_attention", "layers.3")
+    e.sn_dense("linear", "layers.11")
+    e.sn_dense("classification", "classification")
+    e.sn_embedding("embedding", "embedding")
     return e.sd
 
 

@@ -1,13 +1,18 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the autograd Functions around them checked numerically on the CPU.
 
-Marked `cuda`; each test skips on a host without an NVIDIA GPU. This file
-imports torch and the port only (no JAX), so it also runs on the machine
-with the card, where JAX is absent:
+The kernel tests are marked `cuda` and skip on a host without an NVIDIA
+GPU. The gradchecks run the Functions' plain versions in float64 on the
+CPU, so they run everywhere. This file imports torch and the port only (no
+JAX), so it also runs on the machine with the card, where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances:
-  * max pool: bitwise in fp32 and bf16, NaN included.
+  * max pool forward and backward: bitwise in fp32 and bf16, NaN included
+    (the backward's g/2 and g/4 are exact, and its 2x2 windows disjoint).
+  * upsample backward fp32: 1e-5 of max(1, max |gx|) (summation order; each
+    input gathers up to 16 weighted outputs).
   * attention fp32: 1e-4 absolute. Same fp32 math, another summation order
     (online softmax over key tiles); logits up to ~25 carry their rounding
     into exp.
@@ -23,15 +28,22 @@ import torch
 
 from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
 from semantic_pyramid_for_image_generation_torch.ops.cuda.attention import (
+    PooledKVAttentionFunction,
     pooled_kv_attention,
     pooled_kv_attention_plain,
 )
 from semantic_pyramid_for_image_generation_torch.ops.cuda.pool import (
+    MaxPool2x2Function,
     max_pool_2x2,
+    max_pool_2x2_backward,
+    max_pool_2x2_backward_plain,
     max_pool_2x2_plain,
 )
 from semantic_pyramid_for_image_generation_torch.ops.cuda.resize import (
+    Upsample2xFunction,
     upsample_2x,
+    upsample_2x_backward,
+    upsample_2x_backward_plain,
     upsample_2x_plain,
 )
 
@@ -98,8 +110,11 @@ def test_kernels_count_launches(cuda):
     upsample_2x(x)
     q = torch.randn(1, 16, 4, device=cuda)
     pooled_kv_attention(q, q[:, :4], torch.randn(1, 4, 8, device=cuda))
+    max_pool_2x2_backward(x, _cl(torch.randn(1, 8, 2, 2, device=cuda)))
+    upsample_2x_backward(x)
     assert kernels.launch_counts() == {
-        "pooled_kv_attention": 1, "max_pool_2x2": 1, "upsample_2x": 2}
+        "pooled_kv_attention": 1, "max_pool_2x2": 1, "upsample_2x": 2,
+        "max_pool_2x2_backward": 1, "upsample_2x_backward": 1}
     with pytest.raises(ValueError):  # NCHW-contiguous memory is refused
         max_pool_2x2(torch.randn(1, 8, 4, 4, device=cuda))
 
@@ -162,3 +177,107 @@ def test_tiny_generate_on_card_matches_cpu(cuda, dtype, atol):
                        t(noise)).float().cpu())
     assert torch.isfinite(outs[1]).all()
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=atol)
+
+
+def _tie_heavy(shape, dtype, device, seed=0):
+    """Post-ReLU values quantized to quarters: most 2x2 windows tie."""
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=device).relu()
+    return _cl(torch.clamp(torch.round(x * 4) / 4, max=1.5).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 64, 256, 256), (3, 5, 6, 10),
+                                   (2, 512, 16, 16), (4, 1, 128, 128),
+                                   (1, 1, 2, 2)])
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous", "permuted"])
+def test_max_pool_backward_kernel_bitwise(cuda, dtype, shape, layout):
+    """Tie-heavy x; the incoming gradient in the layouts autograd hands over
+    (channels_last from cuDNN, NCHW-contiguous, a permuted view)."""
+    dt = getattr(torch, dtype)
+    x = _tie_heavy(shape, dt, cuda)
+    b, c, h, w = shape
+    g = torch.randn(b, c, h // 2, w // 2, device=cuda).to(dt)
+    if layout == "channels_last":
+        g = _cl(g)
+    elif layout == "permuted":
+        g = g.permute(0, 1, 3, 2).contiguous().permute(0, 1, 3, 2)
+    got = max_pool_2x2_backward(x, g)
+    torch.testing.assert_close(got, max_pool_2x2_backward_plain(x, g),
+                               rtol=0, atol=0)
+    if shape[1] == 1:  # a 0/1 mask: ties in nearly every window
+        m = _cl((torch.rand(shape, device=cuda) < 0.5).to(dt))
+        torch.testing.assert_close(max_pool_2x2_backward(m, g),
+                                   max_pool_2x2_backward_plain(m, g),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_max_pool_backward_kernel_nan_inputs(cuda, dtype):
+    dt = getattr(torch, dtype)
+    x = torch.randn(2, 16, 8, 8, device=cuda).to(dt)
+    x[0, 3, 2, 5] = float("nan")
+    x[1, 15, 7, 0] = float("nan")
+    x = _cl(x)
+    g = _cl(torch.randn(2, 16, 4, 4, device=cuda).to(dt))
+    got = max_pool_2x2_backward(x, g)
+    torch.testing.assert_close(got, max_pool_2x2_backward_plain(x, g),
+                               rtol=0, atol=0, equal_nan=True)
+    assert float(got[0, 3, 2:4, 4:6].abs().sum()) == 0.0  # NaN's window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 512, 8, 8), (2, 64, 256, 256),
+                                   (1, 3, 10, 14), (2, 8, 2, 2),
+                                   (2, 5, 4, 6), (16, 256, 64, 64)])
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+def test_upsample_backward_kernel_matches_plain(cuda, dtype, shape, layout):
+    """g has the forward's output shape (B, C, 2H, 2W); H = 1 and C not a
+    multiple of 4 or 8 included."""
+    g = torch.randn(shape, device=cuda).to(getattr(torch, dtype))
+    if layout == "channels_last":
+        g = _cl(g)
+    want = upsample_2x_backward_plain(g).float()
+    got = upsample_2x_backward(g).float()
+    scale = max(1.0, want.abs().max().item())
+    atol = 1e-5 * scale if dtype == "float32" else 2 * 2.0 ** -7 * scale
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_functions_take_the_kernels_forward_and_backward(cuda):
+    kernels.reset_launch_counts()
+    x = _cl(torch.randn(2, 16, 8, 8, device=cuda)).requires_grad_(True)
+    y = Upsample2xFunction.apply(MaxPool2x2Function.apply(x))
+    y.square().sum().backward()
+    assert kernels.launch_counts() == {
+        "pooled_kv_attention": 0, "max_pool_2x2": 1, "upsample_2x": 1,
+        "max_pool_2x2_backward": 1, "upsample_2x_backward": 1}
+    xc = x.detach().cpu().requires_grad_(True)
+    Upsample2xFunction.apply(MaxPool2x2Function.apply(xc)).square().sum(
+        ).backward()
+    torch.testing.assert_close(x.grad.cpu(), xc.grad, rtol=0, atol=1e-5)
+
+
+# ------------------------------------------- gradchecks, CPU, float64 -----
+
+
+def test_max_pool_function_gradcheck():
+    """Distinct values (no ties), where the gradient is the derivative."""
+    x = torch.randn(2, 3, 6, 8, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(MaxPool2x2Function.apply, (x,))
+
+
+def test_upsample_function_gradcheck():
+    for shape in ((2, 3, 4, 5), (1, 2, 1, 3)):
+        x = torch.randn(shape, dtype=torch.float64, requires_grad=True)
+        assert torch.autograd.gradcheck(Upsample2xFunction.apply, (x,))
+
+
+def test_attention_function_gradcheck():
+    q, k, v = (torch.randn(2, n, c, dtype=torch.float64, requires_grad=True)
+               for n, c in ((6, 4), (3, 4), (3, 5)))
+    assert torch.autograd.gradcheck(PooledKVAttentionFunction.apply, (q, k, v))

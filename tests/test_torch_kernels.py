@@ -145,7 +145,8 @@ def test_cpu_tensors_take_plain_versions_without_counting():
                                pooled_kv_attention_plain(q, k, v),
                                rtol=0, atol=0)
     assert kernels.launch_counts() == {
-        "pooled_kv_attention": 0, "max_pool_2x2": 0, "upsample_2x": 0}
+        "pooled_kv_attention": 0, "max_pool_2x2": 0, "upsample_2x": 0,
+        "max_pool_2x2_backward": 0, "upsample_2x_backward": 0}
 
 
 def test_wrappers_reject_bad_inputs():
