@@ -8,9 +8,12 @@ Phases; any failure raises and exits non-zero, before the result lines:
 
  1. CUDA check; the card's name and power limit (nvidia-smi).
  2. Build the CUDA kernels from csrc/ with nvcc for sm_90a; build seconds and
-    the ptxas register / spill lines.
+    the ptxas register / spill lines of the kernels redesigned for Hopper.
+    The SASS of the library (cuobjdump -sass) must hold tensor-core
+    instructions (HMMA or HGMMA) in every bf16 attention instantiation.
  3. Each kernel against its plain PyTorch version at its main path's shapes
-    (batch 16), in bf16 and fp32: max error beside its tolerance, kernel ms,
+    (batch 16), in bf16 and fp32: per site, max error beside its tolerance,
+    kernel us and its share of the bound; summed over the sites, kernel ms,
     plain ms, the library yardstick's ms and the bound (bytes at 3.35 TB/s,
     flops at 67 TFLOP/s fp32 or 989 TFLOP/s bf16; NVIDIA's H100 SXM data).
     The three forwards at the serving sites, the two backwards at the train
@@ -97,6 +100,82 @@ def time_ms(fn, reps: int = 21, inner: int = 10) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ---------------------------------------------------------------- phase 2 --
+
+# the kernels redesigned for Hopper: their ptxas lines are printed, and the
+# bf16 attention kernel must run on the tensor cores
+REDESIGNED = ("attention_mma_kernel", "attention_fp32_kernel",
+              "upsample_2x_backward_kernel")
+TENSOR_CORE_OPS = ("HMMA", "HGMMA")
+
+
+def short_name(symbol: str, kernel: str) -> str:
+    """A kernel's name and mangled template arguments (ILi2ELi16) from its
+    mangled symbol."""
+    return kernel + symbol.split(kernel, 1)[1].split("EE")[0]
+
+
+def print_ptxas_lines(log: str) -> None:
+    """The ptxas register and spill lines of the redesigned kernels, one line
+    per instantiation: 'name: Used N registers ...; N bytes spill ...'."""
+    name, parts = None, []
+    for line in log.splitlines() + ["ptxas info    : Compiling entry function"]:
+        if "Compiling entry function" in line:
+            if name is not None and parts:
+                print(f"    {name}: {'; '.join(parts)}")
+            name = next((short_name(line, k) for k in REDESIGNED if k in line),
+                        None)
+            parts = []
+        elif name is not None and ("registers" in line or "spill" in line):
+            parts.append(line.split(":", 1)[-1].strip())
+
+
+def cuobjdump() -> str:
+    """cuobjdump from the CUDA toolkit, else the copy in Triton's package."""
+    import importlib.util
+    import os
+    import shutil
+
+    found = shutil.which("cuobjdump")
+    if found is None and os.path.exists("/usr/local/cuda/bin/cuobjdump"):
+        found = "/usr/local/cuda/bin/cuobjdump"
+    spec = importlib.util.find_spec("triton")
+    if found is None and spec is not None and spec.origin is not None:
+        candidate = os.path.join(os.path.dirname(spec.origin), "backends",
+                                 "nvidia", "bin", "cuobjdump")
+        found = candidate if os.path.exists(candidate) else None
+    if found is None:
+        raise RuntimeError("cuobjdump not found (CUDA toolkit or triton)")
+    return found
+
+
+def check_sass(library_path) -> None:
+    """Dump the library's SASS; fail unless every instantiation of the bf16
+    attention kernel holds tensor-core instructions (HMMA or HGMMA)."""
+    sass = subprocess.run([cuobjdump(), "-sass", str(library_path)],
+                          check=True, capture_output=True, text=True).stdout
+    functions: dict = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            functions[name] = {}
+        elif name is not None:
+            for op in TENSOR_CORE_OPS:
+                if op + "." in line or op + " " in line:
+                    functions[name][op] = functions[name].get(op, 0) + 1
+    mma = {n: ops for n, ops in functions.items()
+           if "attention_mma_kernel" in n}
+    for n, ops in mma.items():
+        print(f"    SASS {short_name(n, 'attention_mma_kernel')}: {ops}")
+    if not mma or not all(ops for ops in mma.values()):
+        raise AssertionError("the bf16 attention kernel holds no HMMA/HGMMA "
+                             "instructions")
+    print(f"    SASS check: {len(mma)} bf16 attention instantiations, all "
+          f"on the tensor cores ({len(functions)} functions dumped)",
+          flush=True)
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -288,20 +367,24 @@ def check_kernels(device) -> dict:
                 err = (got.float() - want.float()).abs().max().item()
                 tol = spec["tol"](site_dtype, want.float())
                 ok = (torch.equal(got, want) if tol == 0.0 else err <= tol)
-                print(f"  {name} {str(site_dtype)[6:]} {tuple(shape)}: "
-                      f"max_abs_err {err:.3g} (tol {tol:.3g}) "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                site = (f"  {name} {str(site_dtype)[6:]} {tuple(shape)}: "
+                        f"max_abs_err {err:.3g} (tol {tol:.3g})")
                 if not ok:
+                    print(site + " FAIL", flush=True)
                     raise AssertionError(f"{name} disagrees with its plain "
                                          f"version at {shape} in {site_dtype}")
-                row["max_abs_err"] = max(row["max_abs_err"], err)
-                row["ms"] += time_ms(lambda: spec["kernel"](*args))
-                row["plain_ms"] += time_ms(lambda: spec["plain"](*args))
-                row["library_ms"] += time_ms(spec["library"](*args))
+                ms = time_ms(lambda: spec["kernel"](*args))
                 t_bytes = (nbytes(*args) + spec["out_bytes"](*args)) \
                     / HBM_BYTES_PER_S * 1e3
                 t_flops = spec["flops"](*args) / PEAK_FLOPS[site_dtype] * 1e3
-                row["bound_ms"] += max(t_bytes, t_flops)
+                bound = max(t_bytes, t_flops)
+                print(f"{site} ok, {ms * 1e3:.1f} us, {100 * bound / ms:.0f}% "
+                      f"of its bound", flush=True)
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["ms"] += ms
+                row["plain_ms"] += time_ms(lambda: spec["plain"](*args))
+                row["library_ms"] += time_ms(spec["library"](*args))
+                row["bound_ms"] += bound
                 bytes_s += t_bytes
                 flops_s += t_flops
             row["bound_by"] = "bytes" if bytes_s >= flops_s else "operations"
@@ -696,7 +779,8 @@ def drive_train_path(device) -> dict:
     return counts
 
 
-KERNEL_NAMES = ("attention_kernel", "max_pool_2x2_kernel", "upsample_2x_kernel",
+KERNEL_NAMES = ("attention_mma_kernel", "attention_fp32_kernel",
+                "max_pool_2x2_kernel", "upsample_2x_kernel",
                 "max_pool_2x2_backward_kernel", "upsample_2x_backward_kernel")
 # device op kinds by name, first match wins
 OP_KINDS = (
@@ -794,9 +878,8 @@ def main() -> int:
     start = time.perf_counter()
     build.library()
     print(f"[2] kernels built in {time.perf_counter() - start:.1f} s", flush=True)
-    for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("   ", line.strip())
+    print_ptxas_lines(build.build_log())
+    check_sass(build.build())
 
     print("[3] kernels against their plain versions (batch 16)", flush=True)
     kernels = check_kernels(device)

@@ -1,9 +1,11 @@
-// Helpers shared by the port's CUDA kernels: fp32 / bf16 element access and
-// the dtype codes of the plain C interface (see ops/cuda/build.py).
+// Helpers shared by the port's CUDA kernels: fp32 / bf16 element access,
+// asynchronous copies into shared memory, and the dtype codes of the plain C
+// interface (see ops/cuda/build.py).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace spig {
 
@@ -33,6 +35,30 @@ template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously (cp.async, L2 only); the 16
+// bytes are zero-filled, and src is not read, where !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 inline bool aligned_to(const void* p, size_t bytes) {
   return reinterpret_cast<size_t>(p) % bytes == 0;

@@ -2,8 +2,9 @@
 version, its launch count, and the autograd Function around it.
 
 Replaces the JAX package's Pallas `pooled_kv_attention` forward
-(ops/pallas/attention.py). fp32 runs the kernel too: its dots are full fp32
-FMAs, so the TPU's reason to route fp32 elsewhere does not arise. The
+(ops/pallas/attention.py). bf16 runs on the tensor cores and rounds p to bf16
+before p @ v, as the Pallas kernel does. fp32 runs the kernel too, on full
+fp32 FMAs, so the TPU's reason to route fp32 elsewhere does not arise. The
 backward is the plain form of the JAX package's `_bwd`, which JAX computes
 with XLA einsums, not in a Pallas kernel.
 """
@@ -35,6 +36,22 @@ def pooled_kv_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bqk,bkc->bqc", p.to(v.dtype), v)
 
 
+def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> int:
+    """Raise ValueError unless the kernel takes q, k and v (C8, C2 <= 256,
+    B <= 65535, contiguous, one dtype of float32 or bfloat16); returns the
+    dtype code. Checks what the kernel needs, not where the tensors lie."""
+    code = _launch.dtype_code("pooled_kv_attention", q, k, v)
+    b, c8, c2 = q.shape[0], q.shape[2], v.shape[2]
+    if c8 > MAX_CHANNELS or c2 > MAX_CHANNELS or b > 65535:
+        raise ValueError(f"pooled_kv_attention: the kernel takes C8, C2 <= "
+                         f"{MAX_CHANNELS} and B <= 65535, got B={b} C8={c8} "
+                         f"C2={c2}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("pooled_kv_attention: q, k and v must be contiguous")
+    return code
+
+
 def pooled_kv_attention(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
     """q (B, Nq, C8), k (B, Nk, C8), v (B, Nk, C2) -> (B, Nq, C2): the kernel
@@ -49,15 +66,9 @@ def pooled_kv_attention(q: torch.Tensor, k: torch.Tensor,
             f"{tuple(v.shape)}")
     if not _launch.runs_kernel("pooled_kv_attention", q, k, v):
         return pooled_kv_attention_plain(q, k, v)
-    code = _launch.dtype_code("pooled_kv_attention", q, k, v)
+    code = check_kernel_inputs(q, k, v)
     b, nq, c8 = q.shape
     nk, c2 = v.shape[1], v.shape[2]
-    if c8 > MAX_CHANNELS or c2 > MAX_CHANNELS or b > 65535:
-        raise ValueError(f"pooled_kv_attention: the kernel takes C8, C2 <= "
-                         f"{MAX_CHANNELS} and B <= 65535, got B={b} C8={c8} "
-                         f"C2={c2}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("pooled_kv_attention: q, k and v must be contiguous")
     out = torch.empty((b, nq, c2), dtype=v.dtype, device=v.device)
     check(library().spig_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

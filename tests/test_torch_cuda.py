@@ -12,15 +12,18 @@ Tolerances:
   * max pool forward and backward: bitwise in fp32 and bf16, NaN included
     (the backward's g/2 and g/4 are exact, and its 2x2 windows disjoint).
   * upsample backward fp32: 1e-5 of max(1, max |gx|) (summation order; each
-    input gathers up to 16 weighted outputs).
+    input gathers up to 16 weighted outputs). Repeated launches are bitwise
+    equal (no atomics).
   * attention fp32: 1e-4 absolute. Same fp32 math, another summation order
     (online softmax over key tiles); logits up to ~25 carry their rounding
-    into exp.
+    into exp. Repeated launches are bitwise equal (no atomics).
   * upsample fp32: 1e-5 absolute (a few ulps: FMA contraction and the zero
     terms of the plain version's matrix form).
   * bf16: two bf16 ulps of the largest output (2 * 2**-7 * max|out|). The
-    kernels keep attention probabilities in fp32 and round the upsample once;
-    the plain versions round p before p @ v and between the two passes.
+    attention kernel rounds p to bf16 before p @ v where the plain version
+    does (its exp is ex2.approx and its row sums run in another order, so a
+    p may round the other way); the upsample kernels round once, the plain
+    versions between their two passes.
 """
 
 import pytest
@@ -64,19 +67,28 @@ def _cl(t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("c8,c2,nq,nk", [(32, 128, 1024, 256), (4, 16, 1024, 256),
-                                         (128, 256, 100, 70), (8, 40, 33, 1)])
-def test_attention_kernel_matches_plain(cuda, dtype, c8, c2, nq, nk):
+@pytest.mark.parametrize("b,c8,c2,nq,nk", [
+    (16, 32, 128, 1024, 256),  # the generator's site
+    (3, 4, 16, 1024, 256),     # the tiny widths
+    (3, 128, 256, 100, 70),    # two output chunks; ragged query and key tiles
+    (3, 8, 40, 33, 1),         # one key
+    (2, 256, 128, 70, 300),    # the widest q k^T
+    (2, 12, 17, 65, 129),      # element-wise staging, odd C2
+    (2, 32, 256, 64, 4096),    # K and V larger than shared memory
+])
+def test_attention_kernel_matches_plain(cuda, dtype, b, c8, c2, nq, nk):
     g = torch.Generator(cuda).manual_seed(0)
     dt = getattr(torch, dtype)
-    q, k = (torch.randn(3, n, c8, device=cuda, generator=g).to(dt)
+    q, k = (torch.randn(b, n, c8, device=cuda, generator=g).to(dt)
             for n in (nq, nk))
-    v = torch.randn(3, nk, c2, device=cuda, generator=g).to(dt)
+    v = torch.randn(b, nk, c2, device=cuda, generator=g).to(dt)
     want = pooled_kv_attention_plain(q, k, v).float()
-    got = pooled_kv_attention(q, k, v).float()
+    got = pooled_kv_attention(q, k, v)
+    again = pooled_kv_attention(q, k, v)
     torch.cuda.synchronize()
     atol = 1e-4 if dtype == "float32" else 2 * 2.0 ** -7 * want.abs().max().item()
-    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+    assert torch.equal(got, again)  # no atomics: bitwise repeatable
 
 
 @pytest.mark.cuda
@@ -230,21 +242,27 @@ def test_max_pool_backward_kernel_nan_inputs(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(2, 512, 8, 8), (2, 64, 256, 256),
-                                   (1, 3, 10, 14), (2, 8, 2, 2),
-                                   (2, 5, 4, 6), (16, 256, 64, 64)])
+@pytest.mark.parametrize("shape", [
+    # the train step's sites (the gradients of G's upsample outputs)
+    (16, 512, 8, 8), (16, 512, 16, 16), (16, 512, 32, 32), (16, 256, 32, 32),
+    (16, 256, 64, 64), (16, 128, 64, 64), (16, 128, 128, 128),
+    (16, 64, 128, 128), (16, 64, 256, 256),
+    # edges: H = W = 1, C not a multiple of 4 or 8, tiles that do not divide
+    # H or W, H = 1 beside a wide W
+    (2, 512, 8, 8), (2, 64, 256, 256), (1, 3, 10, 14), (2, 8, 2, 2),
+    (2, 5, 4, 6), (2, 8, 18, 30), (1, 16, 2, 34)])
 @pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
 def test_upsample_backward_kernel_matches_plain(cuda, dtype, shape, layout):
-    """g has the forward's output shape (B, C, 2H, 2W); H = 1 and C not a
-    multiple of 4 or 8 included."""
+    """g has the forward's output shape (B, C, 2H, 2W)."""
     g = torch.randn(shape, device=cuda).to(getattr(torch, dtype))
     if layout == "channels_last":
         g = _cl(g)
     want = upsample_2x_backward_plain(g).float()
-    got = upsample_2x_backward(g).float()
+    got = upsample_2x_backward(g)
     scale = max(1.0, want.abs().max().item())
     atol = 1e-5 * scale if dtype == "float32" else 2 * 2.0 ** -7 * scale
-    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+    assert torch.equal(got, upsample_2x_backward(g))  # bitwise repeatable
 
 
 @pytest.mark.cuda
