@@ -20,7 +20,9 @@ Phases; any failure raises and exits non-zero, before the result lines:
     step's sites (max-pool backward bitwise, on tie-heavy inputs); the
     attention Function's plain backward is timed beside them. Times are
     medians of 21 CUDA-event windows of 10 back-to-back launches, queued
-    behind a spin kernel so host overhead stays out.
+    behind a spin kernel so host overhead stays out. First, what PyTorch's
+    own fill and copy reach over 128 MiB: the rate a kernel that only
+    streams bytes can expect on this card.
  4. End-to-end references: a tiny-width model on the card (kernels) against
     the same model on the CPU (plain versions): generate in fp32 and bf16,
     and two fp32 train steps (metrics, parameters, u/v, BN statistics).
@@ -107,7 +109,7 @@ def nbytes(*tensors) -> int:
 # the kernels redesigned for Hopper: their ptxas lines are printed, and the
 # bf16 attention kernel must run on the tensor cores
 REDESIGNED = ("attention_mma_kernel", "attention_fp32_kernel",
-              "upsample_2x_backward_kernel")
+              "upsample_2x_kernel", "upsample_2x_backward_kernel")
 TENSOR_CORE_OPS = ("HMMA", "HGMMA")
 
 
@@ -241,6 +243,18 @@ def tie_heavy(shape, dtype, g):
     x = torch.randn(shape, generator=g, device=g.device).relu()
     x = torch.clamp(torch.round(x * 4) / 4, max=1.5)
     return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def memory_ceilings(device) -> None:
+    """TB/s of `fill_` (writes only) and `copy_` (reads and writes as many)
+    over 128 MiB outputs, beside the 3.35 TB/s that the bounds assume."""
+    y = torch.empty(2 ** 25, device=device)
+    x = torch.ones_like(y)
+    for what, fn, moved in (("fill", lambda: y.fill_(1), nbytes(y)),
+                            ("copy", lambda: y.copy_(x), 2 * nbytes(y))):
+        rate = moved / (time_ms(fn) * 1e-3)
+        print(f"  {what} over 128 MiB: {rate / 1e12:.3f} TB/s "
+              f"({100 * rate / HBM_BYTES_PER_S:.0f}% of 3.35 TB/s)", flush=True)
 
 
 def check_kernels(device) -> dict:
@@ -882,6 +896,7 @@ def main() -> int:
     check_sass(build.build())
 
     print("[3] kernels against their plain versions (batch 16)", flush=True)
+    memory_ceilings(device)
     kernels = check_kernels(device)
 
     print("[4] tiny end-to-end references", flush=True)

@@ -7,20 +7,56 @@
 // reached through upsample_align_corners_pallas. The TPU kernel applied dense
 // (out, in) interpolation matrices A_h x A_w^T on the MXU. A row of those
 // matrices has at most two non-zeros, so on Hopper each output is a 2-tap
-// stencil in each axis: four input reads and three weighted sums, no matrix.
+// stencil in each axis, and no matrix is formed.
+//
+// Kernel 3 is bound by bytes: it must read the input once and write the
+// output (4x the input) once, and does ~3 flops per output element. A thread
+// per output pack, as it first was, ran at half of that bound in bf16: the
+// work per pack, not device memory, set its pace (64-bit index division, the
+// taps in double twice, four input loads served from L1/L2, the H pass twice
+// per output, a conversion instruction per bf16 element). So the work per
+// pack is cut to the W pass and a share of the H pass:
+//  - a block of 256 threads owns 2 * strip output rows, 2 * TW output columns
+//    and CP packs of VEC channels (CP * TW = 128: CP = 8 where a pixel has at
+//    most 8 packs, 32 for images at most 4 columns wide with 32 packs or
+//    more, else 16), one thread per (output column, pack); strip is 8,
+//    halved down to 1 until a launch has 1024 blocks, so small images still
+//    fill the card;
+//  - output rows 2j and 2j + 1 tap input rows j - 1 .. j + 1 (columns
+//    likewise), so the block stages its strip and tile of the input with a
+//    halo of at most one row and one column on each side, by 16-byte
+//    cp.async: each input byte comes from device memory once per block;
+//  - while the copies are in flight, the taps of the block's output rows
+//    (into shared memory) and of each thread's output column (registers) are
+//    computed once, with the matrix builder's double-precision floor and
+//    clamp; the block's place comes from one 32-bit decomposition of
+//    blockIdx.x, and no division runs per pack;
+//  - for each pair of output rows, the H pass runs once per (output row,
+//    staged column, pack) into a double-buffered fp32 tile in shared memory,
+//    in planes of 4 channels so that a warp's 16-byte accesses are free of
+//    bank conflicts; after one barrier the W pass reads two of its columns
+//    per output pack, and the block stores whole output rows in coalesced
+//    16-byte packs along C;
+//  - bf16 becomes fp32 by bit shifts of each pair of values, and fp32 is
+//    rounded back a pair per instruction: element-wise conversions cost the
+//    bf16 kernel most of its gain.
+// Tried and not kept: the 4-tap stencil straight from the staged input (no
+// shared H pass; as fast), persistent blocks that prefetch their next strip
+// (slower: fewer blocks fit an SM), and a streaming-store hint (faster alone
+// at the middle sizes, where it keeps the input in L2 between repeated
+// launches; no gain before the convolution that reads the output).
 //
 // Kernel 5 replaces ops/pallas/resize.py::_up_bwd, which ran the same
 // _forward kernel with the transposed matrices, A_h^T g A_w, from 2H x 2W
-// down to H x W. Kernel 3 is a fixed 2x stencil and cannot run that. The
-// backward is separable, gx = A_h^T g A_w, and each output row's two taps
-// land on input rows i0 and i0 + 1, where i0 grows by at most one from one
-// output row to the next. So a block streams output rows: it owns a strip of
-// input rows (8, halved down to 1 until a launch has 1024 blocks, so small
-// images still fill the card), 4 or 8 input columns and CP = 16 or 8 packs
-// of VEC channels (64 threads, one per column and pack), and walks the
-// output rows that touch the strip in order, through a ring of 4 rows in
-// shared memory filled by 16-byte cp.async (3 rows in flight). For each
-// output row a thread runs the W pass of its input column from shared
+// down to H x W. The backward is separable, gx = A_h^T g A_w, and each output
+// row's two taps land on input rows i0 and i0 + 1, where i0 grows by at most
+// one from one output row to the next. So a block streams output rows: it
+// owns a strip of input rows (8, halved down to 1 until a launch has 1024
+// blocks, so small images still fill the card), 4 or 8 input columns and CP
+// = 16 or 8 packs of VEC channels (64 threads, one per column and pack), and
+// walks the output rows that touch the strip in order, through a ring of 4
+// rows in shared memory filled by 16-byte cp.async (3 rows in flight). For
+// each output row a thread runs the W pass of its input column from shared
 // memory into registers, then the H pass: it adds w_lo * t into input row
 // i0 and w_hi * t into row i0 + 1, so only two rows of sums are live; a row
 // is complete, rounded once and stored, when the output rows move past it.
@@ -33,17 +69,13 @@
 // output row whose clamp puts both taps on the last input row (i0 == i1,
 // the two weights added into one) and in == 1 (weight 1 on both rows). No
 // atomics: the sums run in a fixed order, so the result is deterministic.
-//
-// Bound: bytes. Kernel 3 needs ~6 flops per output and 4 reads that mostly
-// hit in L1/L2; its unique traffic is the input once plus the output (4x the
-// input) once. Kernel 3's design: one thread per (pixel, VEC consecutive
-// channels); C is innermost, so a warp's loads and its store are coalesced
-// 16-byte packs (float x4, bf16 x8); a grid-stride loop covers any shape.
 // Kernel 5 reads g (4x its output) once from device memory, ~9 weighted adds
 // per output element, and writes its output once; the halo columns and rows
 // (about 3 beyond the 2 x 4 or 2 x 8 a block needs in each direction) are
-// re-read by the neighbouring blocks from L2. In both, VEC = 1 takes channel
-// counts that are not multiples of 4 / 8 (the narrow test widths).
+// re-read by the neighbouring blocks from L2.
+//
+// In both kernels VEC = 1 takes channel counts that are not multiples of 4 /
+// 8 (the narrow test widths) and pointers not aligned to 16 bytes.
 //
 // Numerics: the source coordinate i * (in - 1) / (out - 1) is taken in double
 // with the same floor and clamp as ops/resize.py::
@@ -80,40 +112,6 @@ __device__ __forceinline__ Taps taps(int o, int in, double scale) {
   t.w0 = static_cast<float>(1.0 - frac);
   t.w1 = static_cast<float>(frac);
   return t;
-}
-
-template <typename T, int VEC>
-__global__ void upsample_2x_kernel(const T* __restrict__ x, T* __restrict__ y,
-                                   int batch, int h, int w, int c,
-                                   double scale_h, double scale_w) {
-  const int ho = 2 * h, wo = 2 * w, cv = c / VEC;
-  const size_t total = static_cast<size_t>(batch) * ho * wo * cv;
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const int ci = static_cast<int>(i % cv);
-    size_t t = i / cv;
-    const int ox = static_cast<int>(t % wo);
-    t /= wo;
-    const int oy = static_cast<int>(t % ho);
-    const size_t b = t / ho;
-    const Taps ty = taps(oy, h, scale_h);
-    const Taps tx = taps(ox, w, scale_w);
-    const T* base = x + b * h * w * c + ci * VEC;
-    using P = Pack<T, VEC>;
-    const P a00 = *reinterpret_cast<const P*>(base + (static_cast<size_t>(ty.i0) * w + tx.i0) * c);
-    const P a10 = *reinterpret_cast<const P*>(base + (static_cast<size_t>(ty.i1) * w + tx.i0) * c);
-    const P a01 = *reinterpret_cast<const P*>(base + (static_cast<size_t>(ty.i0) * w + tx.i1) * c);
-    const P a11 = *reinterpret_cast<const P*>(base + (static_cast<size_t>(ty.i1) * w + tx.i1) * c);
-    P out;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      // H pass at the two source columns, then the W pass
-      const float c0 = ty.w0 * to_f32(a00.v[e]) + ty.w1 * to_f32(a10.v[e]);
-      const float c1 = ty.w0 * to_f32(a01.v[e]) + ty.w1 * to_f32(a11.v[e]);
-      out.v[e] = from_f32<T>(tx.w0 * c0 + tx.w1 * c1);
-    }
-    *reinterpret_cast<P*>(y + i * VEC) = out;
-  }
 }
 
 // Input row j's share of output row o: the sum of o's tap weights that land
@@ -336,15 +334,208 @@ __global__ void __launch_bounds__(kBackwardThreads)
   }
 }
 
+constexpr int kForwardThreads = 256;
+
+// A tap pair as rows or columns of the block's staged input.
+struct LocalTaps {
+  int i0, i1;
+  float w0, w1;
+};
+
+// Kernel 3's shared memory in front of the staged input: the taps of the
+// block's output rows, and the H pass of one pair of output rows at every
+// staged column, double-buffered, in fp32 planes of up to 4 channels.
+template <typename T, int VEC, int CP>
+struct ForwardTile {
+  static constexpr int kTileW = kForwardThreads / (2 * CP);  // input columns
+  static constexpr int kCols = kTileW + 2;  // staged: a halo on either side
+  static constexpr int kVF = VEC < 4 ? VEC : 4;  // floats per plane
+  static constexpr int kPlanes = VEC / kVF;
+  using F = Pack<float, kVF>;
+  static_assert(kCols <= 2 * kTileW, "one thread a staged column and pack");
+  LocalTaps rows[2 * kMaxStrip];
+  F t[2][2][kCols][kPlanes][CP];  // [buffer][row of the pair][column][plane][pack]
+  // byte offset of the staged input, (strip + 2) x kCols x CP packs
+  static constexpr size_t kInput = (sizeof(LocalTaps) * 2 * kMaxStrip +
+                                    sizeof(F) * 4 * kCols * kPlanes * CP + 15) /
+                                   16 * 16;
+};
+
+// A pack as fp32: bf16 pairs by bit shifts (exact).
 template <typename T, int VEC>
-cudaError_t launch(const void* x, void* y, int batch, int h, int w, int c,
-                   cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const size_t total = static_cast<size_t>(batch) * (2 * h) * (2 * w) * (c / VEC);
-  upsample_2x_kernel<T, VEC><<<grid_for(total, kThreads), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), batch, h, w, c,
-      scale_2x(h), scale_2x(w));
+__device__ __forceinline__ void unpack(const Pack<T, VEC>& p, float* f) {
+  if constexpr (sizeof(T) == 2 && VEC % 2 == 0) {
+    const uint32_t* u = reinterpret_cast<const uint32_t*>(p.v);
+#pragma unroll
+    for (int e = 0; e < VEC / 2; ++e) {
+      f[2 * e] = __uint_as_float(u[e] << 16);
+      f[2 * e + 1] = __uint_as_float(u[e] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) f[e] = to_f32(p.v[e]);
+  }
+}
+
+// fp32 to a pack: bf16 rounds to nearest even, a pair per conversion.
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> pack(const float* f) {
+  Pack<T, VEC> p;
+  if constexpr (sizeof(T) == 2 && VEC % 2 == 0) {
+    __nv_bfloat162* pairs = reinterpret_cast<__nv_bfloat162*>(p.v);
+#pragma unroll
+    for (int e = 0; e < VEC / 2; ++e) {
+      pairs[e] = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) p.v[e] = from_f32<T>(f[e]);
+  }
+  return p;
+}
+
+template <typename T, int VEC, int CP>
+__global__ void __launch_bounds__(kForwardThreads)
+    upsample_2x_kernel(const T* __restrict__ x, T* __restrict__ y, int h,
+                       int w, int c, int strip, int strips, int tiles_w,
+                       int chunks, double scale_h, double scale_w) {
+  using P = Pack<T, VEC>;
+  using Tile = ForwardTile<T, VEC, CP>;
+  using F = typename Tile::F;
+  constexpr int kCols = Tile::kCols, kVF = Tile::kVF, kPlanes = Tile::kPlanes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Tile& tile = *reinterpret_cast<Tile*>(smem_raw);
+  P* in = reinterpret_cast<P*>(smem_raw + Tile::kInput);
+  // the block's place, packs innermost, so that neighbours share halos in L2
+  unsigned blk = blockIdx.x;
+  const int z = static_cast<int>(blk % static_cast<unsigned>(chunks));
+  blk /= static_cast<unsigned>(chunks);
+  const int x0 = static_cast<int>(blk % static_cast<unsigned>(tiles_w)) *
+                 Tile::kTileW;
+  blk /= static_cast<unsigned>(tiles_w);
+  const int y0 = static_cast<int>(blk % static_cast<unsigned>(strips)) * strip;
+  const int b = static_cast<int>(blk / static_cast<unsigned>(strips));
+  const int tid = threadIdx.x, k = tid / CP, q = tid % CP, pk = z * CP + q;
+  const int cv = c / VEC;
+  const int x_end = min(x0 + Tile::kTileW, w), y_end = min(y0 + strip, h);
+  // the block's output rows 2 y0 .. 2 y_end - 1 tap input rows y0 - 1 ..
+  // y_end, its columns likewise: stage those, thread (k, q) column k's pack
+  // q of every row
+  const int ry0 = max(y0 - 1, 0), nrows = min(y_end, h - 1) - ry0 + 1;
+  const int rx0 = max(x0 - 1, 0), ncols = min(x_end, w - 1) - rx0 + 1;
+  const bool h_pass = k < ncols && pk < cv;
+  if (h_pass) {
+    const size_t row = static_cast<size_t>(w) * c;
+    const T* src = x + (static_cast<size_t>(b) * h + ry0) * row +
+                   static_cast<size_t>(rx0 + k) * c + pk * VEC;
+    for (int r = 0; r < nrows; ++r) {
+      copy_pack<T, VEC>(in + (r * kCols + k) * CP + q, src + r * row);
+    }
+  }
+  cp_async_commit();
+
+  // while the copies are in flight: the taps of the block's output rows and
+  // of this thread's output column, once
+  const int steps = y_end - y0;  // pairs of output rows
+  if (tid < 2 * steps) {
+    const Taps t = taps(2 * y0 + tid, h, scale_h);
+    tile.rows[tid] = {t.i0 - ry0, t.i1 - ry0, t.w0, t.w1};
+  }
+  const int ox = 2 * x0 + k;
+  const bool stores = ox < 2 * w && pk < cv;
+  const Taps tx = taps(min(ox, 2 * w - 1), w, scale_w);
+  const int cx0 = tx.i0 - rx0, cx1 = tx.i1 - rx0;
+  const size_t out_row = static_cast<size_t>(2 * w) * c;
+  T* dst = y + (static_cast<size_t>(b) * 2 * h + 2 * y0) * out_row +
+           static_cast<size_t>(ox) * c + pk * VEC;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int s = 0; s < steps; ++s) {
+    auto& t = tile.t[s & 1];  // H pass of output rows 2 s and 2 s + 1
+    if (h_pass) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const LocalTaps ty = tile.rows[2 * s + r];
+        float a[VEC], a1[VEC];
+        unpack(in[(ty.i0 * kCols + k) * CP + q], a);
+        unpack(in[(ty.i1 * kCols + k) * CP + q], a1);
+#pragma unroll
+        for (int p = 0; p < kPlanes; ++p) {
+          F v;
+#pragma unroll
+          for (int e = 0; e < kVF; ++e) {
+            v.v[e] = ty.w0 * a[p * kVF + e] + ty.w1 * a1[p * kVF + e];
+          }
+          t[r][k][p][q] = v;
+        }
+      }
+    }
+    // the other buffer is written next; it was last read before this barrier
+    __syncthreads();
+    if (stores) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float o[VEC];
+#pragma unroll
+        for (int p = 0; p < kPlanes; ++p) {
+          const F c0 = t[r][cx0][p][q], c1 = t[r][cx1][p][q];
+#pragma unroll
+          for (int e = 0; e < kVF; ++e) {
+            o[p * kVF + e] = tx.w0 * c0.v[e] + tx.w1 * c1.v[e];
+          }
+        }
+        *reinterpret_cast<P*>(dst + (2 * s + r) * out_row) = pack<T, VEC>(o);
+      }
+    }
+  }
+}
+
+template <typename T, int VEC, int CP>
+cudaError_t launch_forward(const void* x, void* y, int batch, int h, int w,
+                           int c, cudaStream_t stream) {
+  using Tile = ForwardTile<T, VEC, CP>;
+  static_assert(sizeof(Tile) <= Tile::kInput, "staged input after the tile");
+  const int tiles_w = (w + Tile::kTileW - 1) / Tile::kTileW;
+  const int chunks = (c / VEC + CP - 1) / CP;
+  const size_t columns = static_cast<size_t>(batch) * tiles_w * chunks;
+  int strip = kMaxStrip;
+  while (strip > 1 && columns * ((h + strip - 1) / strip) < kMinBlocks) {
+    strip /= 2;
+  }
+  const int strips = (h + strip - 1) / strip;
+  const size_t blocks = columns * strips;
+  if (blocks > 0x7fffffffu) return cudaErrorInvalidValue;
+  const size_t smem = Tile::kInput + sizeof(Pack<T, VEC>) * (strip + 2) *
+                                         Tile::kCols * CP;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        upsample_2x_kernel<T, VEC, CP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  upsample_2x_kernel<T, VEC, CP>
+      <<<static_cast<unsigned>(blocks), kForwardThreads, smem, stream>>>(
+          static_cast<const T*>(x), static_cast<T*>(y), h, w, c, strip, strips,
+          tiles_w, chunks, scale_2x(h), scale_2x(w));
   return cudaGetLastError();
+}
+
+// CP packs a block (TW = 128 / CP input columns): 8 where a pixel has at most
+// 8; 32 for images at most 4 columns wide with 32 packs or more, so that the
+// block's columns are not idle; else 16. VEC = 1 takes 16 channels.
+template <typename T, int VEC>
+cudaError_t dispatch_forward(const void* x, void* y, int batch, int h, int w,
+                             int c, cudaStream_t stream) {
+  if constexpr (VEC > 1) {
+    if (c / VEC <= 8) {
+      return launch_forward<T, VEC, 8>(x, y, batch, h, w, c, stream);
+    }
+    if (w <= 4 && c / VEC >= 32) {
+      return launch_forward<T, VEC, 32>(x, y, batch, h, w, c, stream);
+    }
+  }
+  return launch_forward<T, VEC, 16>(x, y, batch, h, w, c, stream);
 }
 
 // CP packs a block: 8 where a pixel has at most 8 (16 columns a block), else
@@ -394,14 +585,16 @@ extern "C" int spig_upsample_2x(const void* x, void* y, int batch, int h,
   auto s = static_cast<cudaStream_t>(stream);
   const bool packed = aligned_to(x, 16) && aligned_to(y, 16);
   if (dtype == kFloat32) {
-    if (packed && c % 4 == 0) return launch<float, 4>(x, y, batch, h, w, c, s);
-    return launch<float, 1>(x, y, batch, h, w, c, s);
+    if (packed && c % 4 == 0) {
+      return dispatch_forward<float, 4>(x, y, batch, h, w, c, s);
+    }
+    return dispatch_forward<float, 1>(x, y, batch, h, w, c, s);
   }
   if (dtype == kBFloat16) {
     if (packed && c % 8 == 0) {
-      return launch<__nv_bfloat16, 8>(x, y, batch, h, w, c, s);
+      return dispatch_forward<__nv_bfloat16, 8>(x, y, batch, h, w, c, s);
     }
-    return launch<__nv_bfloat16, 1>(x, y, batch, h, w, c, s);
+    return dispatch_forward<__nv_bfloat16, 1>(x, y, batch, h, w, c, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -18,7 +18,8 @@ Tolerances:
     (online softmax over key tiles); logits up to ~25 carry their rounding
     into exp. Repeated launches are bitwise equal (no atomics).
   * upsample fp32: 1e-5 absolute (a few ulps: FMA contraction and the zero
-    terms of the plain version's matrix form).
+    terms of the plain version's matrix form). Repeated launches are bitwise
+    equal.
   * bf16: two bf16 ulps of the largest output (2 * 2**-7 * max|out|). The
     attention kernel rounds p to bf16 before p @ v where the plain version
     does (its exp is ex2.approx and its row sums run in another order, so a
@@ -103,14 +104,38 @@ def test_max_pool_kernel_bitwise(cuda, dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(2, 512, 4, 4), (2, 64, 128, 128),
-                                   (1, 3, 5, 7), (2, 8, 1, 1)])
+@pytest.mark.parametrize("shape", [
+    # the serving and train-step sites (bf16 and fp32 lists together)
+    (16, 512, 4, 4), (16, 512, 8, 8), (16, 512, 16, 16), (16, 256, 16, 16),
+    (16, 256, 32, 32), (16, 128, 32, 32), (16, 128, 64, 64), (16, 64, 64, 64),
+    (16, 64, 128, 128),
+    # edges: H = W = 1, C not a multiple of 4 or 8, column tiles and row
+    # strips that do not divide W or H, H = 1 beside a wide W
+    (2, 512, 4, 4), (2, 64, 128, 128), (1, 3, 5, 7), (2, 8, 1, 1),
+    (1, 3, 1, 1), (2, 5, 6, 10), (1, 16, 10, 14), (2, 8, 18, 30),
+    (1, 16, 1, 34), (1, 512, 2, 3), (3, 64, 33, 1)])
 def test_upsample_kernel_matches_plain(cuda, dtype, shape):
     x = _cl(torch.randn(shape, device=cuda).to(getattr(torch, dtype)))
     want = upsample_2x_plain(x).float()
-    got = upsample_2x(x).float()
+    got = upsample_2x(x)
     atol = 1e-5 if dtype == "float32" else 2 * 2.0 ** -7 * want.abs().max().item()
-    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
+    assert torch.equal(got, upsample_2x(x))  # bitwise repeatable
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_upsample_kernel_unaligned_input(cuda, dtype):
+    """A view one element into its storage: not 16-byte aligned, so the
+    kernel takes its element-wise (VEC = 1) form."""
+    b, c, h, w = 2, 64, 6, 10
+    flat = torch.randn(b * h * w * c + 1, device=cuda).to(getattr(torch, dtype))
+    x = flat[1:].view(b, h, w, c).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    assert x.data_ptr() % 16
+    want = upsample_2x_plain(x).float()
+    atol = 1e-5 if dtype == "float32" else 2 * 2.0 ** -7 * want.abs().max().item()
+    torch.testing.assert_close(upsample_2x(x).float(), want, rtol=0, atol=atol)
 
 
 @pytest.mark.cuda

@@ -50,7 +50,10 @@ from semantic_pyramid_for_image_generation_torch.ops.resize import (
 DTYPES = ["float32", "bfloat16"]
 POOL_SHAPES = [(2, 256, 256, 4), (1, 128, 128, 8), (2, 128, 128, 1)]
 RESIZE_SHAPES = [(2, 8, 8, 16), (1, 16, 8, 128), (2, 4, 4, 64),
-                 (1, 32, 32, 256), (1, 64, 64, 128)]
+                 (1, 32, 32, 256), (1, 64, 64, 128),
+                 # the generator's real widths: block 1's C = 512, and the
+                 # final block's C = 64 (through _resize_kernel_small_c)
+                 (1, 4, 4, 512), (1, 32, 32, 64)]
 
 
 def _torch(x: np.ndarray, dtype: str) -> torch.Tensor:
