@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path
-and the fused G/D train step.
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
+the fused G/D train step and the Trainer.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -22,7 +22,9 @@ Phases; any failure raises and exits non-zero, before the result lines:
     medians of 21 CUDA-event windows of 10 back-to-back launches, queued
     behind a spin kernel so host overhead stays out. First, what PyTorch's
     own fill and copy reach over 128 MiB: the rate a kernel that only
-    streams bytes can expect on this card.
+    streams bytes can expect on this card. Last, the three forwards at the
+    Trainer's generate batches (32: validation, 49: the grid), checked
+    against their plain versions, not timed.
  4. End-to-end references: a tiny-width model on the card (kernels) against
     the same model on the CPU (plain versions): generate in fp32 and bf16,
     and two fp32 train steps (metrics, parameters, u/v, BN statistics).
@@ -38,10 +40,24 @@ Phases; any failure raises and exits non-zero, before the result lines:
     then one bf16 step at batch 64 (peak memory). Launch counters are reset
     before it; each step must move them by attention 5, upsample 22, max
     pool 30, max-pool backward 14, upsample backward 11.
- 7. torch.profiler over single warm requests per bucket and dtype, and over
+ 7. The Trainer path: `Trainer.train` at full width in bf16 (random init
+    from the seed, u/v advanced as in phase 6) on 4 in-memory synthetic
+    batches of 16, validating every 32 samples on 2 batches of 32: an FID
+    and a sweep grid after steps 2 and 4, the epoch-end checkpoint and grid.
+    Launch counters are reset before it and must move by 4 train steps plus
+    7 generates (1 attention, 11 upsample, 6 max pool each). The FID from the
+    host (float64 sqrtm) and the device (float32 eigh) reductions of the
+    same moments; the 49-row grid as an array (a PNG only where PIL
+    imports); a fresh Trainer auto-resumes from checkpoint_000.pt with G, D,
+    Adam and step bitwise equal, then both take one step on one pinned
+    batch. Timings beside the card line: Trainer images/s beside phase 6's
+    bare step, validate split into generate, Inception and statistics,
+    checkpoint save and restore seconds and bytes.
+ 8. torch.profiler over single warm requests per bucket and dtype, and over
     one warm train step at batch 16 per dtype: device time by kernel and by
     kind of op, the kernels' share, the device's busy share.
- 8. The `kernels` JSON line (launches from the train path), the card line
+ 9. The `kernels` JSON line (launches from the train path; the serving and
+    Trainer paths' as `serving_launches`, `trainer_launches`), the card line
     again, and last the device line.
 
 Imports torch, numpy and the port only; needs one card and no network.
@@ -72,6 +88,12 @@ TRAIN_STEPS = 6  # 1 warm-up + 5 timed
 TRAIN_LAUNCHES = {  # per train step (chip_smoke phase 6)
     "pooled_kv_attention": 5, "upsample_2x": 22, "max_pool_2x2": 30,
     "max_pool_2x2_backward": 14, "upsample_2x_backward": 11}
+GENERATE_LAUNCHES = {  # per eval generate (VGG pyramid, then G)
+    "pooled_kv_attention": 1, "upsample_2x": 11, "max_pool_2x2": 6,
+    "max_pool_2x2_backward": 0, "upsample_2x_backward": 0}
+EVAL_BATCHES = (2 * BATCH, 49)  # validation generates, the 7x7 grid
+TRAINER_STEPS = 4  # phase 7: training batches of BATCH
+VALIDATION_BATCHES = 2  # phase 7: validation batches of 2 * BATCH
 
 
 def card_line() -> str:
@@ -186,23 +208,27 @@ def check_sass(library_path) -> None:
 # A site is (shapes, dtype): the kernel's input shapes at one call of its
 # main path and the dtype it runs in there.
 
-def attention_sites(dtype):
-    """Kernel 1 on one bucket-16 G forward: q (B,1024,32), k (B,256,32),
+def attention_sites(dtype, batch=BATCH):
+    """Kernel 1 on one G forward: q (B,1024,32), k (B,256,32),
     v (B,256,128)."""
-    return [(((BATCH, 1024, 32), (BATCH, 256, 32), (BATCH, 256, 128)), dtype)]
+    return [(((batch, 1024, 32), (batch, 256, 32), (batch, 256, 128)), dtype)]
 
 
-VGG_POOLS = [(BATCH, 64, 256, 256), (BATCH, 128, 128, 128), (BATCH, 256, 64, 64),
-             (BATCH, 512, 32, 32), (BATCH, 512, 16, 16)]
-KV_POOL = (BATCH, 256, 32, 32)  # the attention KV pool of G and of D
+def vgg_pools(batch=BATCH):
+    return [(batch, 64, 256, 256), (batch, 128, 128, 128),
+            (batch, 256, 64, 64), (batch, 512, 32, 32), (batch, 512, 16, 16)]
 
 
-def pool_sites(dtype):
+def kv_pool(batch=BATCH):
+    return (batch, 256, 32, 32)  # the attention KV pool of G and of D
+
+
+def pool_sites(dtype, batch=BATCH):
     """Kernel 2: the 5 VGG pools and the attention KV pool (NCHW shapes)."""
-    return [(shape, dtype) for shape in VGG_POOLS + [KV_POOL]]
+    return [(shape, dtype) for shape in vgg_pools(batch) + [kv_pool(batch)]]
 
 
-def upsample_shapes(dtype):
+def upsample_shapes(dtype, batch=BATCH):
     """Kernel 3's inputs: main and residual upsample of the 5 blocks, then
     the final block. In bf16 the residual runs up2(conv1x1(x)), so it
     upsamples the block's output channels."""
@@ -210,24 +236,24 @@ def upsample_shapes(dtype):
               (128, 64, 64)]
     shapes = []
     for cin, cout, hw in blocks:
-        shapes.append((BATCH, cin, hw, hw))
-        shapes.append((BATCH, cin if dtype == torch.float32 else cout, hw, hw))
-    shapes.append((BATCH, 64, 128, 128))
+        shapes.append((batch, cin, hw, hw))
+        shapes.append((batch, cin if dtype == torch.float32 else cout, hw, hw))
+    shapes.append((batch, 64, 128, 128))
     return shapes
 
 
-def upsample_sites(dtype):
-    return [(shape, dtype) for shape in upsample_shapes(dtype)]
+def upsample_sites(dtype, batch=BATCH):
+    return [(shape, dtype) for shape in upsample_shapes(dtype, batch)]
 
 
 def pool_backward_sites(dtype):
     """Kernel 4 in one train step: the 5 VGG pools on the fakes (compute
     dtype), the 5 loss pools on the fake features (fp32), the KV pool of D
     on real and fake (D phase) and on fake (G phase), and of G (G phase)."""
-    loss = [(b, c, h // 2, w // 2) for b, c, h, w in VGG_POOLS]
-    return ([(shape, dtype) for shape in VGG_POOLS]
+    loss = [(b, c, h // 2, w // 2) for b, c, h, w in vgg_pools()]
+    return ([(shape, dtype) for shape in vgg_pools()]
             + [(shape, torch.float32) for shape in loss]
-            + [(KV_POOL, dtype)] * 4)
+            + [(kv_pool(), dtype)] * 4)
 
 
 def upsample_backward_sites(dtype):
@@ -412,6 +438,28 @@ def check_kernels(device) -> dict:
             else:
                 entry["float32"] = row
         results[name] = entry
+    # the Trainer's generates: validation at 2 x BATCH rows, the grid at 49;
+    # checked against the plain versions, not timed
+    for name in ("pooled_kv_attention", "max_pool_2x2", "upsample_2x"):
+        spec = specs[name]
+        for batch in EVAL_BATCHES:
+            for dtype in DTYPES:
+                worst, sites = 0.0, spec["sites"](dtype, batch)
+                for shape, site_dtype in sites:
+                    args = spec["make"](shape, site_dtype)
+                    got = spec["kernel"](*args)
+                    want = spec["plain"](*args)
+                    err = (got.float() - want.float()).abs().max().item()
+                    tol = spec["tol"](site_dtype, want.float())
+                    if not (torch.equal(got, want) if tol == 0.0
+                            else err <= tol):
+                        raise AssertionError(
+                            f"{name} disagrees with its plain version at "
+                            f"{shape} in {site_dtype}")
+                    worst = max(worst, err)
+                print(f"  {name} {str(dtype)[6:]} batch {batch}, "
+                      f"{len(sites)} sites: max_abs_err {worst:.3g} ok",
+                      flush=True)
     time_attention_backward(device, results["pooled_kv_attention"])
     return results
 
@@ -725,7 +773,7 @@ def train_batches(config, batch, n, device):
             for _ in range(n)]
 
 
-def drive_train_path(device) -> dict:
+def drive_train_path(device):
     from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
     from semantic_pyramid_for_image_generation_torch.train.step import (
         make_train_step,
@@ -790,7 +838,245 @@ def drive_train_path(device) -> dict:
     results["bfloat16_batch64"] = {"ms_first_step": ms, "peak_gib": peak}
     print(f"  train bfloat16 batch {4 * BATCH}: one step {ms:.1f} ms "
           f"(first at this shape), peak {peak:.2f} GiB", flush=True)
-    return counts
+    return counts, results
+
+
+# ---------------------------------------------------------------- phase 7 --
+
+
+def trainer_state(device):
+    """A full-width bf16 train state from SEED, u/v advanced 10 iterations
+    (as in phase 6)."""
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.models.layers import (
+        advance_spectral_norm_,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        init_train_state,
+    )
+
+    state = init_train_state(PyramidGANConfig(compute_dtype="bfloat16"),
+                             device, lr=LR, seed=SEED)
+    for net in (state.generator, state.discriminator):
+        advance_spectral_norm_(net, 10)
+    return state
+
+
+class Clock:
+    """Wall seconds of wrapped calls, keyed by the path of wrapped calls they
+    run in ("validate/generate"); each call runs between two syncs, and the
+    sync before waits for work queued earlier (it is not the call's)."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self._stack: list = []
+
+    def wrap(self, label, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            self._stack.append(label)
+            key = "/".join(self._stack)
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            finally:
+                self._stack.pop()
+            self.seconds[key] = self.seconds.get(key, 0.0) + \
+                time.perf_counter() - t0
+            return out
+        return timed
+
+
+def tree_equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(tree_equal, a, b))
+    return a == b
+
+
+def drive_trainer_path(device, card: str, step_images_per_s: float) -> dict:
+    """The Trainer at full width, bf16, batch 16: 4 steps, a validation (FID
+    over 2 batches of 32) and sweep grid after steps 2 and 4, the epoch-end
+    checkpoint and grid; then a fresh Trainer resumes from the checkpoint
+    and both take one more step on the same pinned batch."""
+    import glob
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    from semantic_pyramid_for_image_generation_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.train.loop import Trainer
+
+    has_pil = importlib.util.find_spec("PIL") is not None
+    state = trainer_state(device)
+    config = state.generator.config
+    rng = np.random.default_rng(SEED)
+    train_set = [synthetic_batch(config, BATCH, rng)
+                 for _ in range(TRAINER_STEPS)]
+    val_set = [synthetic_batch(config, 2 * BATCH, rng, validation=True)
+               for _ in range(VALIDATION_BATCHES)]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+
+    def trainer(state):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the random-init FID warning
+            return Trainer(config, train_set, val_set, lr=LR, device=device,
+                           save_data_path=workdir, seed=SEED, state=state,
+                           allow_random_fid=True, write_grids=has_pil)
+
+    first = trainer(state)
+    clock = Clock()
+    for name in ("validate", "inference", "save_checkpoint", "generate"):
+        setattr(first, name, clock.wrap(name, getattr(first, name)))
+    fid_eval = first.fid_evaluator
+    reduce_moments = fid_eval.reduce_moments
+    fid_eval.moments = clock.wrap("inception", fid_eval.moments)
+    fid_eval.reduce_moments = clock.wrap("host statistics",
+                                         fid_eval.reduce_moments)
+    sec = clock.seconds
+    laps = []  # host seconds of each train_step call, no sync added
+
+    def lap(batch, train_step=first.train_step):
+        t0 = time.perf_counter()
+        out = train_step(batch)
+        laps.append(time.perf_counter() - t0)
+        return out
+
+    first.train_step = lap
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    first.train(epochs=1, validate_after_n_iterations=2 * BATCH,
+                validate_at_start=False, progress=False, log_every=50)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    # validation after every 2 * BATCH samples: after steps 2 and 4, each
+    # followed by a grid; the epoch ends with one more grid
+    validations = len(first.logger.metrics["iterations_fid"])
+    if validations != TRAINER_STEPS // 2:
+        raise AssertionError(f"{validations} validations")
+    generates = validations * (VALIDATION_BATCHES + 1) + 1
+    want = {k: TRAINER_STEPS * TRAIN_LAUNCHES[k] + generates * n
+            for k, n in GENERATE_LAUNCHES.items()}
+    print(f"  launches over Trainer.train: {counts} (expected {want}: "
+          f"{TRAINER_STEPS} steps, {generates} generates: {validations} "
+          f"validations of {VALIDATION_BATCHES} batches, "
+          f"{validations + 1} grids)", flush=True)
+    if counts != want:
+        raise AssertionError(f"Trainer launches {counts}, expected {want}")
+
+    metrics = first.logger.metrics
+    losses = metrics["loss_generator"]
+    if len(losses) != TRAINER_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"logged losses {losses}")
+    n, totals = fid_eval.last_moments
+    fid_host = metrics["fid"][0]
+    t0 = time.perf_counter()
+    fid_device = reduce_moments(n, totals, device_statistics=True)
+    device_stats_s = time.perf_counter() - t0
+    if not (np.isfinite(fid_host) and np.isfinite(fid_device)) or \
+            n != VALIDATION_BATCHES * 2 * BATCH:
+        raise AssertionError(f"FID host {fid_host} device {fid_device} n {n}")
+    print(f"  FID (random-init Inception, {n} samples, not a standard FID): "
+          f"host float64 sqrtm {fid_host:.6f}, device float32 eigh "
+          f"{fid_device:.6f}, difference {fid_device - fid_host:.3g} "
+          f"({(fid_device - fid_host) / fid_host:.3g} relative; the "
+          f"covariances have rank <= {n - 1} of 2048)", flush=True)
+
+    grid = first.last_grid
+    if grid.shape != (49, 256, 256, 3) or not np.isfinite(grid).all():
+        raise AssertionError(f"grid {grid.shape}")
+    cells = grid.reshape(7, 7, -1)
+    same = [c for c in range(6)
+            if np.allclose(cells[:, c], cells[:, c + 1], atol=1e-3)]
+    if same:
+        raise AssertionError(f"grid columns {same} equal their neighbours")
+    (ckpt,) = glob.glob(os.path.join(first.paths["models"], "checkpoint_*"))
+    if os.path.basename(ckpt) != "checkpoint_000.pt":
+        raise AssertionError(ckpt)
+    pngs = glob.glob(os.path.join(first.paths["plots"], "*.png"))
+    print(f"  grid (49, 256, 256, 3) finite, its 7 columns differ; PIL "
+          f"{'present: ' + str(len(pngs)) + ' PNGs written' if has_pil else 'absent: no PNG written'}"
+          f"; {os.path.basename(ckpt)} {os.path.getsize(ckpt):,} bytes; "
+          f"{len(losses)} steps logged, last losses "
+          f"{ {k: v[-1] for k, v in metrics.items() if k.startswith('loss')} }",
+          flush=True)
+
+    # resume: a fresh Trainer (a new init from the seed) adopts the checkpoint
+    second = trainer(trainer_state(device))
+    t0 = time.perf_counter()
+    if not second.auto_resume(first.paths["models"]):
+        raise AssertionError("auto_resume found no checkpoint")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for net in ("generator", "discriminator"):
+        if not tree_equal(getattr(first.state, net).state_dict(),
+                          getattr(second.state, net).state_dict()):
+            raise AssertionError(f"resumed {net} differs")
+        opt = f"{net[0]}_optimizer"
+        if not tree_equal(getattr(first.state, opt).state_dict(),
+                          getattr(second.state, opt).state_dict()):
+            raise AssertionError(f"resumed {opt} differs")
+    if second.state.step != first.state.step:
+        raise AssertionError("resumed step differs")
+    batch = dict(train_set[0])
+    noise = np.random.default_rng(SEED + 1).standard_normal(
+        (2, BATCH, config.latent_dim)).astype(np.float32)
+    batch["noise_d"], batch["noise_g"] = noise
+    after = []
+    for t in (first, second):
+        m = t.train_step(batch)
+        after.append(({k: float(v) for k, v in m.items()},
+                      {k: v.detach().float() for k, v in
+                       t.state.generator.named_parameters()}))
+    metric_err = max(abs(after[0][0][k] - after[1][0][k]) /
+                     max(abs(after[0][0][k]), 1e-12) for k in after[0][0])
+    param_err = max((after[0][1][k] - after[1][1][k]).abs().max().item()
+                    for k in after[0][1])
+    print(f"  resumed: G, D, both Adam states and the step equal bitwise; one "
+          f"more step on a pinned batch in both: metrics max relative "
+          f"difference {metric_err:.3g} (tolerance 1e-3), G parameters max "
+          f"|difference| {param_err:.3g} (tolerance 2 lr = {2 * LR:g})",
+          flush=True)
+    # cuDNN's weight-gradient kernels may add in another order from run to
+    # run; Adam moves each element by at most ~lr per step whatever its
+    # gradient, so two runs differ by at most 2 lr; the losses are means of
+    # O(1) terms and see D after its update
+    if metric_err > 1e-3 or param_err > 2 * LR:
+        raise AssertionError("the resumed step disagrees")
+
+    steps_s = total_s - sum(sec[k] for k in
+                            ("validate", "inference", "save_checkpoint"))
+    images_per_s = TRAINER_STEPS * BATCH / steps_s
+    print(f"  {card}: Trainer.train {total_s:.3f} s in all; its "
+          f"{TRAINER_STEPS} steps {steps_s:.3f} s, {images_per_s:.1f} "
+          f"images/s (the bare step, phase 6: {step_images_per_s:.1f}; "
+          f"host ms per train_step call "
+          f"{[round(1e3 * t, 2) for t in laps[:TRAINER_STEPS]]}); "
+          f"validate {sec['validate']:.3f} s ({validations} x "
+          f"{VALIDATION_BATCHES} batches of {2 * BATCH}): generate {sec['validate/generate']:.3f} "
+          f"s, Inception {sec['validate/inception']:.3f} s, host statistics "
+          f"(float64 sqrtm) {sec['validate/host statistics']:.3f} s; device "
+          f"statistics (float32 eigh) {device_stats_s:.3f} s; "
+          f"{validations + 1} grids "
+          f"{sec['inference']:.3f} s (generate "
+          f"{sec['inference/generate']:.3f} s); checkpoint save "
+          f"{sec['save_checkpoint']:.3f} s, restore {restore_s:.3f} s, "
+          f"{os.path.getsize(ckpt):,} bytes", flush=True)
+    shutil.rmtree(workdir)
+    return {"images_per_s": images_per_s, "counts": counts}
 
 
 KERNEL_NAMES = ("attention_mma_kernel", "attention_fp32_kernel",
@@ -912,13 +1198,20 @@ def main() -> int:
         kernels[name]["serving_launches"] = count
 
     print("[6] train path: full-width train steps, bf16 then fp32", flush=True)
-    train = drive_train_path(device)
+    train, train_results = drive_train_path(device)
     for name, count in train.items():
         if count == 0:
             raise AssertionError(f"{name} was never launched on the train path")
         kernels[name]["launches"] = count
 
-    print("[7] profiles of single requests and of one train step", flush=True)
+    print("[7] Trainer path: full-width bf16 Trainer.train, validation, grid, "
+          "checkpoint and resume", flush=True)
+    trainer = drive_trainer_path(device, card,
+                                 train_results["bfloat16"]["images_per_s"])
+    for name, count in trainer["counts"].items():
+        kernels[name]["trainer_launches"] = count
+
+    print("[8] profiles of single requests and of one train step", flush=True)
     profile_requests(device)
     profile_train_step(device)
 

@@ -98,7 +98,9 @@ def main(argv=None) -> int:
             raise ValueError("the port loads reference .pt checkpoints; "
                              "convert orbax checkpoints with the JAX package's "
                              "cli.convert_checkpoint")
-        load_reference_gan_checkpoint(args.load_checkpoint, generator)
+        generator.load_state_dict(
+            load_reference_gan_checkpoint(args.load_checkpoint)["generator"],
+            strict=True)
     model = ServingArtifact.from_modules(generator, vgg, batch_buckets=(1,))
 
     # ---- inputs --------------------------------------------------------------

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ops/resize.py: the generator's 2x
 align-corners bilinear upsample (Kernel 3 forward and Kernel 5 backward on
 CUDA), the align-corners interpolation matrix their plain versions apply,
-and the host-side nearest resize of the mask pipeline.
+the FID's half-pixel resize and the host-side nearest resize of the mask
+pipeline.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from semantic_pyramid_for_image_generation_torch.ops.cuda.resize import (
     Upsample2xFunction,
@@ -44,6 +46,17 @@ def upsample_bilinear_align_corners(x: torch.Tensor) -> torch.Tensor:
     plain versions on the CPU."""
     return Upsample2xFunction.apply(
         x.contiguous(memory_format=torch.channels_last))
+
+
+def resize_bilinear_half_pixel(x: torch.Tensor, out_h: int,
+                               out_w: int) -> torch.Tensor:
+    """Bilinear resize with half-pixel centers (torch align_corners=False) and
+    no antialiasing, of an NHWC tensor: the FID input resize to 299. Not a
+    Pallas kernel in the JAX package (jax.image.resize there), so the library
+    call it is."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w),
+                      mode="bilinear", align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1)
 
 
 def interpolate_nearest_np(x: np.ndarray, out_h: int, out_w: int) -> np.ndarray:

@@ -1,0 +1,349 @@
+"""Training orchestration on one device, counterpart of the JAX package's
+train/loop.py::Trainer.
+
+The same behaviour: metric names, the validation cadence on `samples_seen`,
+per-epoch checkpoints, `epochs_trained` persisting across `train()` calls,
+the initial validate + inference pass, and the 7x7 mask-level sweep grid as
+one 49-row generate. On the card:
+  * step metrics stay on the device and are fetched in one host copy every
+    `log_every` steps (a per-step float() would wait for every step); every
+    step is still logged;
+  * each step draws its latents from a torch.Generator seeded by
+    (seed + 1, state.step), so a resumed run draws what an uninterrupted one
+    would;
+  * validation and the grid run the generator in eval mode (no u/v or
+    batch-norm statistics advance) and restore its mode after.
+Checkpoints are the reference `.pt` layout (train/checkpoint.py).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+from typing import Any, Dict, Iterable, Mapping, Optional
+
+import numpy as np
+import torch
+
+from semantic_pyramid_for_image_generation_torch.config import (
+    DEFAULT_LR,
+    DEFAULT_W_DIV,
+    DEFAULT_W_REC,
+    PyramidGANConfig,
+)
+from semantic_pyramid_for_image_generation_torch.data.masks import MaskSchedule
+from semantic_pyramid_for_image_generation_torch.eval.fid import FIDEvaluator
+from semantic_pyramid_for_image_generation_torch.eval.grid import (
+    save_inference_grid,
+    sweep_masks,
+    sweep_stack,
+)
+from semantic_pyramid_for_image_generation_torch.train.checkpoint import (
+    latest_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from semantic_pyramid_for_image_generation_torch.train.state import (
+    TrainState,
+    import_adam_moments,
+    init_train_state,
+    param_count,
+)
+from semantic_pyramid_for_image_generation_torch.train.step import (
+    batch_to_device,
+    make_generate_fn,
+    make_train_step,
+)
+from semantic_pyramid_for_image_generation_torch.utils.device import (
+    resolve_device,
+)
+from semantic_pyramid_for_image_generation_torch.utils.logger import (
+    Logger,
+    make_run_dirs,
+)
+
+GRID_LEVELS = 7
+
+
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The latent generator of train step `step`: seeded by (seed, step)."""
+    words = np.random.SeedSequence((seed, step)).generate_state(2, np.uint32)
+    return torch.Generator(device).manual_seed(
+        int(words[0]) << 32 | int(words[1]))
+
+
+class Trainer:
+    def __init__(
+        self,
+        config: PyramidGANConfig,
+        training_dataset: Iterable[Dict[str, Any]],
+        validation_dataset: Optional[Iterable[Dict[str, Any]]] = None,
+        lr: float = DEFAULT_LR,
+        w_rec: float = DEFAULT_W_REC,
+        w_div: float = DEFAULT_W_DIV,
+        save_data_path: str = "saved_data",
+        device: torch.device | str = "cuda",
+        tensorboard: bool = False,
+        seed: int = 0,
+        state: Optional[TrainState] = None,
+        inception_state_dict: Optional[Mapping[str, Any]] = None,
+        allow_random_fid: bool = False,
+        fid_device_stats: bool = False,
+        compat_inference_indices: bool = False,
+        write_grids: bool = True,
+    ) -> None:
+        """`state` defaults to a random init from `seed` on `device`.
+        `write_grids=False` keeps each sweep grid as the array `last_grid`
+        and writes no PNG (PIL is imported only to write one)."""
+        self.device = resolve_device(device)
+        self.config = config
+        self.training_dataset = training_dataset
+        self.validation_dataset = validation_dataset
+        self.compat_inference_indices = compat_inference_indices
+        self.write_grids = write_grids
+        self.state = state if state is not None else init_train_state(
+            config, self.device, lr=lr, seed=seed)
+        self.step_fn = make_train_step(w_rec=w_rec, w_div=w_div)
+        self.fid_evaluator = FIDEvaluator(
+            inception_state_dict, self.device, allow_random=allow_random_fid,
+            device_statistics=fid_device_stats)
+        self.seed = seed
+        self.rng = torch.Generator(self.device).manual_seed(seed + 1)
+        self._inference_batch: Optional[Dict[str, Any]] = None
+        self.last_grid: Optional[np.ndarray] = None
+        self.paths = make_run_dirs(save_data_path)
+        self.logger = Logger(
+            tensorboard_dir=os.path.join(self.paths["metrics"], "tensorboard")
+            if tensorboard else None)
+        self.samples_seen = 0
+        self.epochs_trained = 0  # persistent across train() calls
+        self.logger.hyperparameter.update({
+            "generator_params": str(param_count(self.state.generator)),
+            "discriminator_params": str(param_count(self.state.discriminator)),
+            "config": str(config),
+            "lr": str(lr), "w_rec": str(w_rec), "w_div": str(w_div),
+        })
+
+    # ------------------------------------------------------------------
+    def _flush_metrics(self, pending) -> Optional[Dict[str, float]]:
+        """ONE host copy for all buffered step metrics, logged in step order.
+        Returns the newest step's host metrics (for the progress bar)."""
+        if not pending:
+            return None
+        names = list(pending[0][0])
+        fetched = torch.stack([torch.stack([m[k] for k in names])
+                               for m, _, _ in pending]).cpu().tolist()
+        host = None
+        for values, (_, samples_seen, epoch) in zip(fetched, pending):
+            host = dict(zip(names, values))
+            for name, value in host.items():
+                self.logger.log(name, value)
+            self.logger.log("iterations", samples_seen)
+            self.logger.log("epoch", epoch)
+        pending.clear()
+        return host
+
+    def train_step(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        """One fused step on a numpy or device batch; the metrics stay on the
+        device."""
+        rng = step_generator(self.seed + 1, int(self.state.step), self.device)
+        self.state, metrics = self.step_fn(
+            self.state, batch_to_device(batch, self.device), rng)
+        return metrics
+
+    def train(
+        self,
+        epochs: int = 50,
+        validate_after_n_iterations: int = 100_000,
+        save_model_after_n_epochs: int = 1,
+        validate_at_start: bool = True,
+        progress: bool = True,
+        log_every: int = 50,
+    ) -> None:
+        """The reference GAN loop around the fused step. Metrics are fetched
+        in one host copy every `log_every` steps; log_every=1 syncs every
+        step as the reference does."""
+        if validate_at_start and self.validation_dataset is not None:
+            self.inference()
+            fid = self.validate()
+        else:
+            fid = float("nan")
+        bar = None
+        if progress:
+            try:
+                from tqdm import tqdm
+
+                bar = tqdm(total=None, dynamic_ncols=True)
+            except ImportError:
+                bar = None
+        next_validation = validate_after_n_iterations
+        pending: list = []  # (device metrics, samples_seen, epoch) per step
+        for _ in range(epochs):
+            epoch = self.epochs_trained
+            for batch in self.training_dataset:
+                batch_size = batch["images"].shape[0]
+                metrics = self.train_step(batch)
+                self.samples_seen += batch_size
+                pending.append((metrics, self.samples_seen, epoch))
+                if bar is not None:
+                    bar.update(batch_size)
+                host = None
+                if len(pending) >= max(1, log_every):
+                    host = self._flush_metrics(pending)
+                if bar is not None and host is not None:
+                    bar.set_description(
+                        "FID={:.4f}, Loss Div={:.4f}, Loss Rec={:.4f}, "
+                        "Loss G={:.4f}, Loss D={:.4f}".format(
+                            fid, host["loss_generator_diversity"],
+                            host["loss_generator_semantic_reconstruction"],
+                            host["loss_generator"],
+                            host["loss_discriminator_real"]
+                            + host["loss_discriminator_fake"]))
+                if (self.validation_dataset is not None
+                        and self.samples_seen >= next_validation):
+                    next_validation += validate_after_n_iterations
+                    self._flush_metrics(pending)
+                    fid = self.validate()
+                    self.inference()
+                    self.logger.log("fid", fid)
+                    self.logger.log("iterations_fid", self.samples_seen)
+                    self.logger.save_metrics(self.paths["metrics"])
+            self._flush_metrics(pending)
+            if epoch % save_model_after_n_epochs == 0:
+                self.save_checkpoint(epoch)
+            self.inference()
+            self.logger.save_metrics(self.paths["metrics"])
+            self.epochs_trained += 1
+        if bar is not None:
+            bar.close()
+
+    def save_checkpoint(self, step: int) -> str:
+        return save_checkpoint(self.paths["models"], self.state, step=step)
+
+    def import_adam_moments(self, checkpoint: Mapping[str, Any]) -> None:
+        """Adopt the Adam moments of a loaded reference checkpoint
+        (utils/pt_interop.py::load_reference_gan_checkpoint) without its
+        weights, mapped by parameter key."""
+        for net in ("generator", "discriminator"):
+            optimizer = getattr(self.state, f"{net[0]}_optimizer")
+            import_adam_moments(optimizer, getattr(self.state, net),
+                                checkpoint[f"{net}_optimizer"], checkpoint[net])
+
+    def auto_resume(self, models_dir: Optional[str] = None) -> bool:
+        """Restore the newest checkpoint under `models_dir` (default: this
+        run's models dir) if there is one."""
+        path = latest_checkpoint(models_dir or self.paths["models"])
+        if path is None:
+            return False
+        restore_checkpoint(path, self.state)
+        print(f"auto-resumed from {path} (step {int(self.state.step)})")
+        return True
+
+    def profile_steps(self, batch: Mapping[str, Any], log_dir: str,
+                      steps: int = 3) -> None:
+        """A torch.profiler chrome trace of `steps` train steps under
+        `log_dir` (utils/profiling.py)."""
+        from semantic_pyramid_for_image_generation_torch.utils.profiling import (
+            trace,
+        )
+
+        with trace(log_dir):
+            for _ in range(steps):
+                metrics = self.train_step(batch)
+            metrics["loss_generator"].cpu()
+
+    # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _eval_mode(self):
+        generator = self.state.generator
+        training = generator.training
+        generator.eval()
+        try:
+            yield
+        finally:
+            generator.train(training)
+
+    def generate(self, batch: Mapping[str, Any],
+                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Eval-mode fakes (B, H, W, 3) for a device batch; the latents are
+        drawn from the Trainer's eval generator unless given."""
+        if noise is None:
+            noise = torch.randn(
+                (batch["images"].shape[0], self.config.latent_dim),
+                generator=self.rng, device=self.device)
+        with self._eval_mode():
+            return make_generate_fn(self.state.generator, self.state.vgg)(
+                batch["images"], batch["masks"], batch["labels"], noise)
+
+    def validate(self) -> float:
+        """FID of fresh fakes against the validation set, batch by batch."""
+        assert self.validation_dataset is not None
+        return self.fid_evaluator.fid(
+            (batch_to_device(b, self.device) for b in self.validation_dataset),
+            self.generate)
+
+    def _draw_inference_samples(self, num_images: int):
+        """Seeded random draw of `num_images` distinct validation samples,
+        seeded by (seed, samples_seen) so grids vary across training yet
+        reruns reproduce them. Plain-iterable validation sets give their
+        first batch's rows instead."""
+        ds = getattr(self.validation_dataset, "dataset", None)
+        if ds is not None and hasattr(ds, "sample") and len(ds) > 0:
+            from concurrent.futures import ThreadPoolExecutor
+
+            pool_n = len(ds)
+            if self.compat_inference_indices:
+                # reference quirk: indices drawn from range(len(dataloader)),
+                # the BATCH COUNT, so only the first n_batches items appear
+                bs = getattr(self.validation_dataset, "batch_size", None)
+                if bs:
+                    drop = getattr(self.validation_dataset, "drop_last", False)
+                    nb = len(ds) // bs if drop else -(-len(ds) // bs)
+                    pool_n = max(1, min(pool_n, nb))
+            pick = np.random.default_rng((self.seed, self.samples_seen))
+            idx = pick.choice(pool_n, size=min(num_images, pool_n),
+                              replace=False)
+            with ThreadPoolExecutor(len(idx)) as pool:  # parallel decode
+                samples = list(pool.map(
+                    lambda i: ds.sample(
+                        int(i), np.random.default_rng((self.seed, int(i)))),
+                    idx))
+            return (np.stack([s[0] for s in samples]),
+                    np.stack([s[1] for s in samples]))
+        if self._inference_batch is None:
+            self._inference_batch = next(iter(self.validation_dataset))
+        batch = self._inference_batch
+        return (np.asarray(batch["images"][:num_images]),
+                np.asarray(batch["labels"][:num_images]))
+
+    def inference(self, num_images: int = 7) -> Optional[str]:
+        """The 7x7 mask-level sweep: rows are validation images, columns pin
+        the conditioning at each pyramid level. All levels ride ONE generate
+        of levels * num_images rows (images and labels tiled level-major),
+        with the latents drawn level by level, as seven generates of
+        num_images rows would draw them. The grid stays in `last_grid`; the
+        PNG path is returned (None with write_grids=False)."""
+        if self.validation_dataset is None:
+            return None
+        images, labels = self._draw_inference_samples(num_images)
+        if images.shape[0] < num_images:
+            reps = -(-num_images // images.shape[0])
+            images = np.tile(images, (reps, 1, 1, 1))[:num_images]
+            labels = np.tile(labels, (reps, 1))[:num_images]
+        batch = batch_to_device({
+            "images": np.tile(images, (GRID_LEVELS, 1, 1, 1)),
+            "labels": np.tile(labels, (GRID_LEVELS, 1)),
+            "masks": sweep_masks(MaskSchedule(self.config), num_images,
+                                 GRID_LEVELS)}, self.device)
+        noise = torch.cat([
+            torch.randn((num_images, self.config.latent_dim),
+                        generator=self.rng, device=self.device)
+            for _ in range(GRID_LEVELS)])
+        fakes = self.generate(batch, noise).float().cpu().numpy()
+        self.last_grid = sweep_stack(fakes, num_images)
+        if not self.write_grids:
+            return None
+        path = os.path.join(self.paths["plots"],
+                            f"predictions_{self.samples_seen}.png")
+        save_inference_grid(self.last_grid, path)
+        return path

@@ -32,6 +32,7 @@ from semantic_pyramid_for_image_generation_torch.models.vgg16 import VGG16
 from semantic_pyramid_for_image_generation_torch.utils.pt_interop import (
     discriminator_state_dict_from_flax,
     generator_state_dict_from_flax,
+    parameter_keys,
     vgg16_state_dict_from_flax,
 )
 
@@ -85,3 +86,53 @@ def init_train_state(config: PyramidGANConfig, device: torch.device,
 
 def param_count(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
+
+
+def import_adam_moments(optimizer: torch.optim.Adam, module: nn.Module,
+                        optimizer_state: Mapping[str, Any],
+                        model_state: Mapping[str, Any]) -> Optional[int]:
+    """Load a torch Adam state dict from a reference-layout checkpoint into
+    `optimizer` (built on `module.parameters()`), mapped by key: the file's
+    integer ids index the parameter keys of the file's own `model_state` in
+    order, and each key names one of the port's parameters. The writer's key
+    order need not be the port's `parameters()` order (the JAX package
+    writes its export order, which puts each attention's `gamma` after its
+    convolutions), so a positional `optimizer.load_state_dict` would put
+    moments on the wrong tensors.
+
+    torch adopts the file's param_groups, its `lr` included, as the
+    reference's resume does. An empty optimizer state (nothing trained yet)
+    clears the optimizer's. Returns the file's Adam step count, None when
+    empty. Counterpart of the JAX package's `inject_adam_moments`."""
+    slots = optimizer_state.get("state") or {}
+    if not slots:
+        optimizer.state.clear()
+        return None
+    groups = optimizer_state["param_groups"]
+    if len(groups) != 1:
+        raise ValueError(f"expected one Adam param group, got {len(groups)}")
+    keys = parameter_keys(model_state)
+    if len(groups[0]["params"]) != len(keys):
+        raise ValueError(
+            f"optimizer state covers {len(groups[0]['params'])} parameters "
+            f"but the model state dict has {len(keys)}")
+    id_of = dict(zip(keys, groups[0]["params"]))
+    params = dict(module.named_parameters())
+    if set(params) != set(keys):
+        raise ValueError("the checkpoint's parameter keys are not the "
+                         f"module's: {sorted(set(params) ^ set(keys))[:4]}")
+    state, step = {}, 0
+    for i, (name, param) in enumerate(params.items()):
+        slot = slots.get(id_of[name])
+        if slot is None:
+            continue
+        for moment in ("exp_avg", "exp_avg_sq"):
+            if tuple(slot[moment].shape) != tuple(param.shape):
+                raise ValueError(f"{name}: {moment} {tuple(slot[moment].shape)}"
+                                 f" for a parameter of {tuple(param.shape)}")
+        state[i] = dict(slot)
+        step = int(slot["step"])
+    optimizer.load_state_dict({
+        "state": state,
+        "param_groups": [dict(groups[0], params=list(range(len(params))))]})
+    return step

@@ -1,5 +1,7 @@
 """The weight bridge: JAX-package parameters and reference `.pt` files into
-the port's state dicts.
+the port's state dicts, and the reference-layout GAN checkpoint the port
+writes and reads (`save_reference_gan_checkpoint`,
+`load_reference_gan_checkpoint`).
 
 The JAX package's variables are nested dicts of arrays (`params`,
 `spectral`, `batch_stats`; a JAX serving artifact's `weights.npz` holds the
@@ -186,7 +188,99 @@ def vgg16_state_dict_from_torch(sd: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def load_reference_gan_checkpoint(path: str, generator: torch.nn.Module) -> None:
-    """Load the generator of a reference `checkpoint_XXX.pt` straight into the
-    port's Generator (same keys, strict)."""
-    generator.load_state_dict(load_torch_file(path)["generator"], strict=True)
+def inception_state_dict_from_flax(
+        variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX InceptionV3Features variables {params, batch_stats} -> the
+    torchvision-named state dict of the port's InceptionV3Features."""
+    params = _flat(variables["params"])
+    stats = _flat(variables["batch_stats"])
+    sd = {}
+    for path in params:
+        if not path.endswith("/conv/kernel"):
+            continue
+        src = path[:-len("/conv/kernel")]
+        dst = src.replace("/", ".")
+        sd[f"{dst}.conv.weight"] = _t(params[path].transpose(3, 2, 0, 1))
+        sd[f"{dst}.bn.weight"] = _t(params[f"{src}/bn_scale"])
+        sd[f"{dst}.bn.bias"] = _t(params[f"{src}/bn_bias"])
+        sd[f"{dst}.bn.running_mean"] = _t(stats[f"{src}/mean"])
+        sd[f"{dst}.bn.running_var"] = _t(stats[f"{src}/var"])
+        sd[f"{dst}.bn.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# GAN checkpoints in the reference layout: checkpoint_XXX.pt holds
+# {"generator", "discriminator", "generator_optimizer",
+# "discriminator_optimizer"}; the port adds "step", which readers that look
+# keys up by name ignore. torch Adam keys its slots by integer ids in the
+# order of the parameters it was built with; a file's ids index the
+# parameter keys of that file's own model state dict, in order.
+# ---------------------------------------------------------------------------
+
+GAN_CHECKPOINT_KEYS = ("generator", "discriminator", "generator_optimizer",
+                       "discriminator_optimizer")
+BUFFER_SUFFIXES = ("weight_u", "weight_v", "running_mean", "running_var",
+                   "num_batches_tracked")
+
+
+def parameter_keys(model_sd: Mapping[str, Any]) -> list:
+    """The parameter keys of a G or D state dict, in its order: torch's
+    state dict lists each module's parameters before its buffers and recurses
+    in registration order, the order `parameters()` yields and torch Adam
+    numbers; spectral u/v and batch-norm statistics are the only buffers."""
+    return [k for k in model_sd if not k.endswith(BUFFER_SUFFIXES)]
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def adam_state_dict_in_module_order(optimizer: torch.optim.Optimizer,
+                                    module: torch.nn.Module) -> Dict[str, Any]:
+    """`optimizer.state_dict()` on the CPU, after checking that its ids
+    number `module.parameters()` in order, so they index the parameter keys
+    of `module.state_dict()` as the reference layout requires."""
+    mine = [p for group in optimizer.param_groups for p in group["params"]]
+    theirs = list(module.parameters())
+    if len(mine) != len(theirs) or any(a is not b for a, b in zip(mine, theirs)):
+        raise ValueError("the optimizer was not built on module.parameters() "
+                         "in order")
+    return _to_cpu(optimizer.state_dict())
+
+
+def save_reference_gan_checkpoint(path: str, state) -> None:
+    """Write a TrainState as a reference `checkpoint_XXX.pt` (G and D state
+    dicts and torch Adam state dicts, all on the CPU) plus its `step`; the
+    JAX package's `load_reference_gan_checkpoint(include_optimizer=True)`
+    reads it with the moments on the right parameters."""
+    torch.save({
+        "generator": _to_cpu(state.generator.state_dict()),
+        "discriminator": _to_cpu(state.discriminator.state_dict()),
+        "generator_optimizer": adam_state_dict_in_module_order(
+            state.g_optimizer, state.generator),
+        "discriminator_optimizer": adam_state_dict_in_module_order(
+            state.d_optimizer, state.discriminator),
+        "step": int(state.step),
+    }, path)
+
+
+def load_reference_gan_checkpoint(path: str) -> Dict[str, Any]:
+    """A reference, JAX-package or port `checkpoint_XXX.pt` as a dict with the
+    G and D state dicts and both optimizer state dicts ({} where the file has
+    none), and `step` where the file has it. Load only files you trust: this
+    unpickles."""
+    ckpt = load_torch_file(path)
+    missing = [k for k in ("generator", "discriminator") if k not in ckpt]
+    if missing:
+        raise KeyError(f"{path} is not a GAN checkpoint: no {missing}")
+    out = {k: ckpt.get(k) or {} for k in GAN_CHECKPOINT_KEYS}
+    if "step" in ckpt:
+        out["step"] = int(ckpt["step"])
+    return out

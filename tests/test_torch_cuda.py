@@ -123,6 +123,51 @@ def test_upsample_kernel_matches_plain(cuda, dtype, shape):
     assert torch.equal(got, upsample_2x(x))  # bitwise repeatable
 
 
+def _generate_sites(b, dtype):
+    """One generate's max-pool inputs (the 5 VGG pools, the attention KV pool)
+    and upsample inputs (main and residual of the 5 blocks, the final block;
+    in bf16 the residual upsamples the block's output channels)."""
+    pools = [(b, 64, 256, 256), (b, 128, 128, 128), (b, 256, 64, 64),
+             (b, 512, 32, 32), (b, 512, 16, 16), (b, 256, 32, 32)]
+    ups = []
+    for cin, cout, hw in ((512, 512, 4), (512, 512, 8), (512, 256, 16),
+                          (256, 128, 32), (128, 64, 64)):
+        ups += [(b, cin, hw, hw), (b, cin if dtype == "float32" else cout,
+                                   hw, hw)]
+    return pools, ups + [(b, 64, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [49, 32])
+def test_forward_kernels_at_the_validation_and_grid_batches(cuda, dtype, b):
+    """Validation generates at twice the train batch (32 at batch 16), the
+    sweep grid at 49 rows (7 images x 7 levels): Kernels 1-3 at every site of
+    one generate at those batches, under the tolerances above (bitwise for
+    the max pool). 49 is odd and no multiple of 16."""
+    g = torch.Generator(cuda).manual_seed(b)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, 1024, 32, device=cuda, generator=g).to(dt)
+    k = torch.randn(b, 256, 32, device=cuda, generator=g).to(dt)
+    v = torch.randn(b, 256, 128, device=cuda, generator=g).to(dt)
+    want = pooled_kv_attention_plain(q, k, v).float()
+    atol = 1e-4 if dtype == "float32" else 2 * 2.0 ** -7 * want.abs().max().item()
+    torch.testing.assert_close(pooled_kv_attention(q, k, v).float(), want,
+                               rtol=0, atol=atol)
+    pools, ups = _generate_sites(b, dtype)
+    for shape in pools:
+        x = _cl(torch.randn(shape, device=cuda, generator=g).to(dt))
+        torch.testing.assert_close(max_pool_2x2(x), max_pool_2x2_plain(x),
+                                   rtol=0, atol=0, msg=str(shape))
+    for shape in ups:
+        x = _cl(torch.randn(shape, device=cuda, generator=g).to(dt))
+        want = upsample_2x_plain(x).float()
+        atol = (1e-5 if dtype == "float32"
+                else 2 * 2.0 ** -7 * want.abs().max().item())
+        torch.testing.assert_close(upsample_2x(x).float(), want, rtol=0,
+                                   atol=atol, msg=str(shape))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_upsample_kernel_unaligned_input(cuda, dtype):
@@ -324,3 +369,32 @@ def test_attention_function_gradcheck():
     q, k, v = (torch.randn(2, n, c, dtype=torch.float64, requires_grad=True)
                for n, c in ((6, 4), (3, 4), (3, 5)))
     assert torch.autograd.gradcheck(PooledKVAttentionFunction.apply, (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.0, 1e-4])
+def test_device_fid_reduction_on_the_card(cuda, scale):
+    """The FID's float32 device reduction (two cuSOLVER eigh calls) against
+    the host float64 one (scipy sqrtm), on non-negative inception-like
+    activations: well-conditioned (256 dims, 400 samples) within rtol 1e-3
+    at both scales; at 1e-4, a random-init Inception's activation scale, the
+    covariance entries are ~1e-10 and need the reduction's rescaling. Rank
+    63 of 2048 (64 samples, as the smoke's validation): finite."""
+    import numpy as np
+
+    from semantic_pyramid_for_image_generation_torch.eval import fid
+
+    rng = np.random.default_rng(0)
+    for dim, n in ((256, 400), (2048, 64)):
+        real = np.abs(rng.standard_normal((n, dim))) * 0.4 * scale
+        fake = (np.abs(0.8 * rng.standard_normal((n, dim))) * 0.4
+                + 0.1) * scale
+        moments = [real.sum(0), real.T @ real, fake.sum(0), fake.T @ fake]
+        got = float(fid.fid_from_moments_device(n, *(
+            torch.from_numpy(m).float().to(cuda) for m in moments)))
+        assert np.isfinite(got), (dim, n)
+        if dim == 256:
+            want = fid.fid_from_statistics(
+                *fid.statistics_from_moments(n, *moments[:2]),
+                *fid.statistics_from_moments(n, *moments[2:]))
+            np.testing.assert_allclose(got, want, rtol=1e-3)

@@ -62,7 +62,11 @@ def test_scan_covers_the_package():
     names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in p.parents}
     for expected in ("ops/cuda/attention.py", "ops/cuda/pool.py",
                      "ops/cuda/resize.py", "models/generator.py",
-                     "serving/server.py", "cli/generate.py"):
+                     "serving/server.py", "cli/generate.py",
+                     "utils/logger.py", "utils/profiling.py", "data/native.py",
+                     "data/places365.py", "models/inception.py",
+                     "train/checkpoint.py", "eval/fid.py", "train/loop.py",
+                     "cli/main.py"):
         assert expected in names
 
 
