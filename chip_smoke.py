@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
-the fused G/D train step and the Trainer.
+the fused G/D train step, the Trainer and the VGG-16 fine-tune.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -53,12 +53,34 @@ Phases; any failure raises and exits non-zero, before the result lines:
     batch. Timings beside the card line: Trainer images/s beside phase 6's
     bare step, validate split into generate, Inception and statistics,
     checkpoint save and restore seconds and bytes.
- 8. torch.profiler over single warm requests per bucket and dtype, and over
-    one warm train step at batch 16 per dtype: device time by kernel and by
-    kind of op, the kernels' share, the device's busy share.
- 9. The `kernels` JSON line (launches from the train path; the serving and
-    Trainer paths' as `serving_launches`, `trainer_launches`), the card line
-    again, and last the device line.
+ 8. The VGG-16 fine-tune path (cli/vgg16_finetune.py): (a) a full-width
+    VGG16 (135,755,949 parameters), random init from the CLI's seed, takes
+    1 warm-up and 5 timed fine-tune steps in bf16 at batch 256 (256x256,
+    synthetic batches on the card), one eval step, then 1 warm-up and 3
+    timed steps in fp32 at batch 64; launch counters are reset before it and
+    each step must move them by 5 max pool and 5 max-pool backward, the eval
+    step by 5 max pool, nothing else (ms/step, images/s, peak memory, and
+    the layout of the gradients autograd hands Kernel 4). (b) Kernels 2 and
+    4 at the five batch-256 sites in bf16 and fp32, bitwise against their
+    plain versions in chunks of 32 images on tie-heavy inputs, timed beside
+    the bound and `F.max_pool2d` / `max_pool2d_with_indices_backward`. (c)
+    The CLI at full width on a JPEG ImageFolder tree in a temporary
+    directory (a 4-class head): the host's cores, the loader's images/s over
+    the batches of 256 after its first, and the same loads on threads and
+    on processes; 2 epochs of 2 steps with --export_pt; a --resume restores
+    weights, Adam state, epoch and best_prec1 bitwise, one more pinned step
+    from each agrees, the export loads strictly and vgg16_infer runs on it;
+    the bytes written. (d) The serving-artifact writer: phase 5's bf16 modules written
+    with buckets (1, 16), read back, two requests equal to the in-memory
+    service's. The phase's seconds.
+ 9. torch.profiler over single warm requests per bucket and dtype, over
+    one warm train step at batch 16 per dtype, and over one warm bf16
+    fine-tune step at batch 256: device time by kernel and by kind of op,
+    the kernels' share, the device's busy share.
+10. The `kernels` JSON line (launches from the train path; the serving,
+    Trainer and fine-tune paths' as `serving_launches`, `trainer_launches`,
+    `finetune_launches`; Kernels 2 and 4 at the fine-tune's sites as
+    `finetune_batch256`), the card line again, and last the device line.
 
 Imports torch, numpy and the port only; needs one card and no network.
 """
@@ -1079,6 +1101,468 @@ def drive_trainer_path(device, card: str, step_images_per_s: float) -> dict:
     return {"images_per_s": images_per_s, "counts": counts}
 
 
+# ---------------------------------------------------------------- phase 8 --
+
+
+FT_BATCH = 256  # the reference's fine-tune batch
+FT_FP32_BATCH = 64
+FT_STEPS = {"bfloat16": 6, "float32": 4}  # 1 warm-up, then timed steps
+FT_LR = 1e-4  # the reference's fine-tune learning rate
+FT_CLASSES = 365
+VGG_PARAMETERS = 135_755_949  # VGG16 at full width, 365 classes
+FT_CLI_CLASSES = 4  # the CLI check's image tree
+FT_CLI_IMAGES = 320  # training JPEGs per class: 5 batches of 256
+LOADER_WORKERS = 8  # ImageFolderLoader's threads, the CLI's --workers
+FINETUNE_LAUNCHES = {  # per fine-tune step: the 5 VGG pools
+    "pooled_kv_attention": 0, "upsample_2x": 0, "max_pool_2x2": 5,
+    "max_pool_2x2_backward": 5, "upsample_2x_backward": 0}
+EVAL_LAUNCHES = dict(FINETUNE_LAUNCHES, max_pool_2x2_backward=0)
+
+
+def finetune_model(device, dtype: str, num_classes: int = FT_CLASSES):
+    """A full-width VGG16 classifier, random init from the CLI's seed."""
+    from semantic_pyramid_for_image_generation_torch.cli.vgg16_finetune import (
+        build_model,
+    )
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+
+    return build_model(PyramidGANConfig(compute_dtype=dtype,
+                                        num_classes=num_classes), device, None)
+
+
+def finetune_batches(device, n: int, batch: int,
+                     num_classes: int = FT_CLASSES) -> list:
+    """`n` synthetic (images, labels) batches made on the card before any
+    timing: images as the loader feeds them, the NCHW view of NHWC memory."""
+    g = torch.Generator(device).manual_seed(SEED)
+    return [(torch.randn((batch, 256, 256, 3), generator=g, device=device)
+             .permute(0, 3, 1, 2),
+             torch.randint(0, num_classes, (batch,), generator=g,
+                           device=device)) for _ in range(n)]
+
+
+def drive_finetune_path(device, card: str):
+    """(a) Fine-tune steps of the full-width VGG16: bf16 at batch 256 (1
+    warm-up, 5 timed, then one eval step), fp32 (TF32 off) at batch 64 (1
+    warm-up, 3 timed). Each step must launch Kernels 2 and 4 five times
+    each, the eval step Kernel 2 five times, and nothing else."""
+    from semantic_pyramid_for_image_generation_torch.cli import (
+        vgg16_finetune as ft,
+    )
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.ops.cuda import pool
+
+    layouts = set()  # what autograd hands Kernel 4 as the output gradient
+    backward = pool.max_pool_2x2_backward
+
+    def probed_backward(x, g):
+        layouts.add((tuple(g.shape), g.is_contiguous(
+            memory_format=torch.channels_last)))
+        return backward(x, g)
+
+    pool.max_pool_2x2_backward = probed_backward
+    results = {}
+    kernels.reset_launch_counts()
+    try:
+        for dtype, batch in (("bfloat16", FT_BATCH), ("float32", FT_FP32_BATCH)):
+            model = finetune_model(device, dtype)
+            n_params = sum(p.numel() for p in model.parameters())
+            if n_params != VGG_PARAMETERS:
+                raise AssertionError(f"VGG16 has {n_params} parameters")
+            first = next(model.parameters()).detach().clone()
+            optimizer = ft.make_optimizer(model, FT_LR)
+            step = ft.make_finetune_step(model, optimizer)
+            batches = finetune_batches(device, FT_STEPS[dtype], batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for i, (x, y) in enumerate(batches):
+                before = kernels.launch_counts()
+                t0 = time.perf_counter()
+                loss, top1 = step(x, y, ft.dropout_generator(0, i, device))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                after = kernels.launch_counts()
+                delta = {k: after[k] - before[k] for k in after}
+                if delta != FINETUNE_LAUNCHES:
+                    raise AssertionError(f"fine-tune step launches {delta}, "
+                                         f"expected {FINETUNE_LAUNCHES}")
+                if not np.isfinite(float(loss)):
+                    raise AssertionError(f"fine-tune loss {float(loss)}")
+            if torch.equal(next(model.parameters()), first):
+                raise AssertionError("the VGG16 parameters did not move")
+            ms = statistics.median(times[1:])
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            row = {"batch": batch, "ms_per_step": ms,
+                   "images_per_s": batch * 1e3 / ms, "peak_gib": peak,
+                   "first_step_ms": times[0]}
+            print(f"  fine-tune {dtype} batch {batch}: {ms:.2f} ms/step "
+                  f"median of {len(times) - 1} (first {times[0]:.1f} ms; all "
+                  f"{[round(t, 2) for t in times]}), {row['images_per_s']:.1f} "
+                  f"images/s, peak {peak:.2f} GiB, launches per step {delta}, "
+                  f"last loss {float(loss):.4f} top-1 {float(top1):.4f}",
+                  flush=True)
+            if dtype == "bfloat16":
+                eval_step = ft.make_eval_step(model)
+                x, y = batches[0]
+                before = kernels.launch_counts()
+                t0 = time.perf_counter()
+                ce, t1, t5 = eval_step(x, y)
+                torch.cuda.synchronize()
+                row["eval_ms"] = (time.perf_counter() - t0) * 1e3
+                after = kernels.launch_counts()
+                delta = {k: after[k] - before[k] for k in after}
+                if delta != EVAL_LAUNCHES:
+                    raise AssertionError(f"eval launches {delta}, expected "
+                                         f"{EVAL_LAUNCHES}")
+                if ce.shape != (batch,) or not torch.isfinite(ce).all() or \
+                        bool((t5 < t1).any()):
+                    raise AssertionError("eval step outputs")
+                print(f"  eval {dtype} batch {batch}: {row['eval_ms']:.2f} ms "
+                      f"(first at this shape), launches {delta}, mean CE "
+                      f"{float(ce.mean()):.4f}", flush=True)
+            results[dtype] = row
+            del model, optimizer, step, batches
+            torch.cuda.empty_cache()
+    finally:
+        pool.max_pool_2x2_backward = backward
+    counts = kernels.launch_counts()
+    print(f"  {card}: launches over the fine-tune path {counts}; Kernel 4's "
+          f"output gradients, (shape, channels_last): {sorted(layouts)}",
+          flush=True)
+    return counts, results
+
+
+def check_finetune_pool_sites(device) -> dict:
+    """(b) Kernels 2 and 4 at the five batch-256 sites in bf16 and fp32:
+    bitwise against their plain versions run on chunks of 32 images, on
+    tie-heavy inputs; kernel, library and plain times (the plain ones over
+    the whole site, 3 single calls) beside the bound."""
+    from semantic_pyramid_for_image_generation_torch.ops.cuda import pool
+
+    g = torch.Generator(device).manual_seed(SEED)
+    out: dict = {"max_pool_2x2": {}, "max_pool_2x2_backward": {}}
+    for dtype in DTYPES:
+        rows = {name: {"sites": 0, "max_abs_err": 0.0, "ms": 0.0,
+                       "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                       "bytes_ms": 0.0, "ops_ms": 0.0} for name in out}
+        for shape in vgg_pools(FT_BATCH):
+            b, c, h, w = shape
+            x = tie_heavy(shape, dtype, g)
+            grad = torch.randn((b, c, h // 2, w // 2), generator=g,
+                               device=device).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            y = pool.max_pool_2x2(x)
+            gx = pool.max_pool_2x2_backward(x, grad)
+            for i in range(0, b, 32):
+                s = slice(i, i + 32)
+                if not (torch.equal(y[s], pool.max_pool_2x2_plain(x[s])) and
+                        torch.equal(gx[s], pool.max_pool_2x2_backward_plain(
+                            x[s], grad[s]))):
+                    raise AssertionError(f"Kernel 2 or 4 disagrees with its "
+                                         f"plain version at {shape} {dtype}, "
+                                         f"images {i}..{i + 31}")
+            del y, gx
+            _, indices = F.max_pool2d(x, 2, return_indices=True)
+            calls = {
+                "max_pool_2x2": (
+                    lambda: pool.max_pool_2x2(x),
+                    lambda: pool.max_pool_2x2_plain(x),
+                    lambda: F.max_pool2d(x, 2),
+                    nbytes(x) * 5 // 4, 3 * x.numel() // 4),
+                "max_pool_2x2_backward": (
+                    lambda: pool.max_pool_2x2_backward(x, grad),
+                    lambda: pool.max_pool_2x2_backward_plain(x, grad),
+                    lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                        grad, x, [2, 2], [2, 2], [0, 0], [1, 1], False,
+                        indices),
+                    nbytes(x) * 2 + nbytes(grad), 10 * x.numel()),
+            }
+            for name, (kernel, plain, library, moved, ops) in calls.items():
+                row = rows[name]
+                ms = time_ms(kernel, reps=7, inner=5)
+                t_bytes = moved / HBM_BYTES_PER_S * 1e3
+                t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+                bound = max(t_bytes, t_ops)
+                row["sites"] += 1
+                row["ms"] += ms
+                row["plain_ms"] += time_ms(plain, reps=3, inner=1)
+                row["library_ms"] += time_ms(library, reps=7, inner=5)
+                row["bound_ms"] += bound
+                row["bytes_ms"] += t_bytes
+                row["ops_ms"] += t_ops
+                print(f"  {name} {str(dtype)[6:]} {shape}: bitwise in chunks "
+                      f"of 32, {ms * 1e3:.1f} us, {100 * bound / ms:.0f}% of "
+                      f"its bound", flush=True)
+            del x, grad, indices
+            torch.cuda.empty_cache()
+        for name, row in rows.items():
+            row["bound_by"] = ("bytes" if row.pop("bytes_ms") >= row.pop("ops_ms")
+                               else "operations")
+            print(f"  {name} {str(dtype)[6:]} over the {row['sites']} "
+                  f"batch-{FT_BATCH} sites: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+                  f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                  f"{100 * row['bound_ms'] / row['ms']:.0f}%)", flush=True)
+            out[name][str(dtype)[6:]] = row
+    return out
+
+
+def time_image_loader(train_set) -> dict:
+    """ImageFolderLoader's rate over a steady window (the batches after the
+    first, whose wait holds the pool's start-up), the host's cores, and the
+    same 256 loads (decode, float32, flip, normalize) spread over threads
+    and over processes, each pool started before its clock: if the
+    interpreter's lock holds the threads back, the processes run faster."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+    from PIL import Image
+
+    from semantic_pyramid_for_image_generation_torch.data.image_folder import (
+        ImageFolderLoader,
+    )
+
+    out = {"cpu_count": os.cpu_count(),
+           "usable_cores": len(os.sched_getaffinity(0))}
+    loader = ImageFolderLoader(train_set, FT_BATCH, num_workers=LOADER_WORKERS)
+    t0 = time.perf_counter()
+    stamps = [time.perf_counter() for _ in loader]
+    out["first_batch_s"] = stamps[0] - t0
+    out["steady_images"] = (len(stamps) - 1) * FT_BATCH
+    out["steady_images_per_s"] = out["steady_images"] / (stamps[-1] - stamps[0])
+    # one thread: the whole load, and the JPEG decode alone
+    k = 32
+    t0 = time.perf_counter()
+    for i in range(k):
+        train_set.load(i, flip=True)
+    out["one_thread_ms"] = (time.perf_counter() - t0) * 1e3 / k
+    t0 = time.perf_counter()
+    for path, _ in train_set.samples[k:2 * k]:
+        with Image.open(path) as img:
+            np.asarray(img.convert("RGB"))
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / k
+    jobs = list(range(FT_BATCH))
+    flips = [True] * FT_BATCH
+    pools = {"threads": ThreadPoolExecutor(LOADER_WORKERS),
+             "processes": ProcessPoolExecutor(
+                 LOADER_WORKERS, mp_context=multiprocessing.get_context("spawn"))}
+    for kind, pool in pools.items():
+        with pool:
+            list(pool.map(train_set.load, jobs[:64], flips[:64]))
+            t0 = time.perf_counter()
+            list(pool.map(train_set.load, jobs, flips, chunksize=8))
+            out[f"{kind}_images_per_s"] = FT_BATCH / (time.perf_counter() - t0)
+    return out
+
+
+def write_image_tree(root: str) -> None:
+    """`<root>/{train,val}/class_<c>/<i>.jpg`: FT_CLI_CLASSES classes of
+    FT_CLI_IMAGES training and 8 validation 256x256 JPEGs from SEED."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    jobs = []
+    rng = np.random.default_rng(SEED)
+    for split, n in (("train", FT_CLI_IMAGES), ("val", 8)):
+        for c in range(FT_CLI_CLASSES):
+            d = os.path.join(root, split, f"class_{c}")
+            os.makedirs(d)
+            for i in range(n):
+                # smooth colour fields plus noise: JPEG-sized like photos
+                base = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+                jobs.append((os.path.join(d, f"{i}.jpg"), base,
+                             int(rng.integers(1 << 30))))
+
+    def write(job):
+        path, base, seed = job
+        img = np.kron(base, np.ones((32, 32, 1), np.uint8)).astype(np.int16)
+        img += np.random.default_rng(seed).integers(-20, 21, img.shape,
+                                                    dtype=np.int16)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            path, quality=90)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+
+
+def drive_finetune_cli(device, card: str) -> None:
+    """(c) The CLI at full width on a JPEG ImageFolder tree (a 4-class
+    head): time ImageFolderLoader (time_image_loader); 2 epochs of 2 steps
+    with --export_pt; a --resume of the save_dir restores the state
+    bitwise; one more pinned step from the finished run and from the
+    resumed one agree; the export loads strictly and vgg16_infer runs it."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from semantic_pyramid_for_image_generation_torch.cli import (
+        vgg16_finetune as ft,
+    )
+    from semantic_pyramid_for_image_generation_torch.cli import vgg16_infer
+    from semantic_pyramid_for_image_generation_torch.data.image_folder import (
+        ImageFolder,
+    )
+    from semantic_pyramid_for_image_generation_torch.models.vgg16 import VGG16
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_finetune_")
+    try:
+        data = os.path.join(workdir, "data")
+        t0 = time.perf_counter()
+        write_image_tree(data)
+        tree_s = time.perf_counter() - t0
+        rates = time_image_loader(ImageFolder(os.path.join(data, "train")))
+        save_dir = os.path.join(workdir, "ckpt")
+        export = os.path.join(workdir, "vgg16_export.pt")
+        argv = ["--device", str(device), "--data", data, "--batch_size",
+                str(FT_BATCH), "--workers", str(LOADER_WORKERS),
+                "--num_classes", str(FT_CLI_CLASSES), "--load_vgg16", "",
+                "--save_dir", save_dir, "--max_steps", "2", "--lr", str(FT_LR)]
+        first = ft.FineTune(ft.build_parser().parse_args(
+            argv + ["--epochs", "2", "--export_pt", export]))
+        t0 = time.perf_counter()
+        first.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        files = sorted(os.listdir(save_dir))
+        if not {"latest_0.pt", "latest_1.pt", "best.pt"} <= set(files) or \
+                not os.path.exists(export):
+            raise AssertionError(f"checkpoints {files}, export "
+                                 f"{os.path.exists(export)}")
+        written = {f: os.path.getsize(os.path.join(save_dir, f)) for f in files}
+        written["export"] = os.path.getsize(export)
+        t0 = time.perf_counter()
+        second = ft.FineTune(ft.build_parser().parse_args(
+            argv + ["--epochs", "3", "--resume", save_dir]))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if (second.start_epoch, second.best_prec1) != (2, first.best_prec1):
+            raise AssertionError(f"resumed at {second.start_epoch}, "
+                                 f"{second.best_prec1}")
+        if not tree_equal(first.model.state_dict(), second.model.state_dict()):
+            raise AssertionError("the resumed weights differ")
+        if not tree_equal(first.optimizer.state_dict(),
+                          second.optimizer.state_dict()):
+            raise AssertionError("the resumed Adam state differs")
+        (x, y), = finetune_batches(device, 1, FT_BATCH, FT_CLI_CLASSES)
+        after = []
+        config = first.model.config
+        for run in (first, second):
+            masks = [m.to(device) for m in (
+                torch.rand((FT_BATCH, config.vgg_fc7_dim), generator=torch
+                           .Generator().manual_seed(SEED + j)) < 0.5
+                for j in range(2))]
+            loss, _ = run.train_step(x, y, dropout_masks=masks)
+            after.append((float(loss), dict(run.model.named_parameters())))
+        loss_err = abs(after[0][0] - after[1][0]) / abs(after[0][0])
+        param_err = max((after[0][1][k] - after[1][1][k]).abs().max().item()
+                        for k in after[0][1])
+        # cuDNN's weight-gradient kernels may add in another order from run
+        # to run: Adam moves each element by at most ~lr per step, so two
+        # runs differ by at most 2 lr (phase 7's rule)
+        if loss_err > 1e-3 or param_err > 2 * FT_LR:
+            raise AssertionError(f"the pinned step disagrees: loss "
+                                 f"{loss_err:.3g}, parameters {param_err:.3g}")
+        best = torch.load(os.path.join(save_dir, "best.pt"),
+                          map_location="cpu", weights_only=True)
+        exported = torch.load(export, map_location="cpu", weights_only=True)
+        if not tree_equal(best["state_dict"], exported):
+            raise AssertionError("--export_pt differs from best.pt's weights")
+        with torch.device("meta"):
+            VGG16(config).load_state_dict(exported, strict=True, assign=True)
+        del first, second, after, best, exported
+        torch.cuda.empty_cache()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            vgg16_infer.main(["--device", str(device), "--data", data,
+                              "--load_vgg16", export,
+                              "--num_classes", str(FT_CLI_CLASSES)])
+        argmax = [line for line in printed.getvalue().splitlines()
+                  if line.startswith("predictions (argmax):")]
+        if len(argmax) != 1:
+            raise AssertionError(f"vgg16_infer printed {printed.getvalue()}")
+        print(f"  {card}: image tree ({FT_CLI_CLASSES} classes, "
+              f"{FT_CLI_CLASSES * FT_CLI_IMAGES} + {FT_CLI_CLASSES * 8} JPEGs)"
+              f" written in {tree_s:.2f} s; host: {rates['cpu_count']} "
+              f"cores, {rates['usable_cores']} usable; ImageFolderLoader, "
+              f"{LOADER_WORKERS} threads: first batch after "
+              f"{rates['first_batch_s']:.3f} s, then "
+              f"{rates['steady_images_per_s']:.1f} images/s over the next "
+              f"{rates['steady_images']} images; one thread "
+              f"{rates['one_thread_ms']:.2f} ms per image, of which the JPEG "
+              f"decode {rates['decode_ms']:.2f} ms; {FT_BATCH} loads on "
+              f"{LOADER_WORKERS} threads {rates['threads_images_per_s']:.1f} "
+              f"images/s, on {LOADER_WORKERS} processes "
+              f"{rates['processes_images_per_s']:.1f} images/s; the CLI's 2 "
+              f"epochs of 2 steps, "
+              f"validation and checkpoints {run_s:.2f} s; bytes written "
+              f"{written} ({sum(written.values()):,} in all); --resume "
+              f"restored weights, Adam state, epoch and best_prec1 bitwise "
+              f"in {restore_s:.2f} s; one more pinned step from each: loss "
+              f"relative difference {loss_err:.3g} (tolerance 1e-3), "
+              f"parameters max |difference| {param_err:.3g} (tolerance 2 lr "
+              f"= {2 * FT_LR:g}); --export_pt equals best.pt's weights and "
+              f"loads strictly; vgg16_infer: {argmax[0]}", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def check_artifact_round_trip(device, card: str) -> None:
+    """(d) The serving-artifact writer at full width: write phase 5's bf16
+    modules with buckets (1, 16), read the artifact back, and serve the
+    same requests from both."""
+    import os
+    import shutil
+    import tempfile
+
+    from semantic_pyramid_for_image_generation_torch.serving.export import (
+        ServingArtifact,
+        save_artifact,
+    )
+    from semantic_pyramid_for_image_generation_torch.serving.server import (
+        GenerateService,
+    )
+
+    g16, v16, _, _ = build_full_width_models(device)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_artifact_")
+    try:
+        t0 = time.perf_counter()
+        save_artifact(g16, v16, workdir, (1, BATCH))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        read = GenerateService(ServingArtifact(workdir, device))
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        live = service_for(g16, v16)
+        image = request_image()
+        errs = []
+        for level, n, class_id in REQUESTS[:2]:
+            got = read.generate_arrays(image, level=level, class_id=class_id,
+                                       num_samples=n, seed=1)
+            want = live.generate_arrays(image, level=level, class_id=class_id,
+                                        num_samples=n, seed=1)
+            if got["class_id"] != want["class_id"]:
+                raise AssertionError("the artifact classifies otherwise")
+            errs.append(float(np.abs(got["fakes"] - want["fakes"]).max()))
+        size = os.path.getsize(os.path.join(workdir, "weights.npz"))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"  {card}: artifact written in {write_s:.2f} s (weights.npz "
+          f"{size:,} bytes), read in {read_s:.2f} s; requests "
+          f"{[r[:2] for r in REQUESTS[:2]]} from the artifact against the "
+          f"in-memory modules: max |difference| {errs} (tolerance 0: the "
+          f"same weights, the same kernels)", flush=True)
+    if max(errs) > 0.0:
+        raise AssertionError("the artifact's output differs")
+
+
 KERNEL_NAMES = ("attention_mma_kernel", "attention_fp32_kernel",
                 "max_pool_2x2_kernel", "upsample_2x_kernel",
                 "max_pool_2x2_backward_kernel", "upsample_2x_backward_kernel")
@@ -1163,6 +1647,22 @@ def profile_train_step(device) -> None:
                         f"batch {BATCH}", lambda: step(state, batches[1]))
 
 
+def profile_finetune_step(device) -> None:
+    """One warm fine-tune step of the full-width VGG16, bf16 at batch 256."""
+    from semantic_pyramid_for_image_generation_torch.cli import (
+        vgg16_finetune as ft,
+    )
+
+    model = finetune_model(device, "bfloat16")
+    step = ft.make_finetune_step(model, ft.make_optimizer(model, FT_LR))
+    batches = finetune_batches(device, 2, FT_BATCH)
+    step(*batches[0], ft.dropout_generator(0, 0, device))
+    torch.cuda.synchronize()
+    profile_summary(f"fine-tune step bfloat16 batch {FT_BATCH}",
+                    lambda: step(*batches[1],
+                                 ft.dropout_generator(0, 1, device)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs an NVIDIA "
@@ -1211,9 +1711,32 @@ def main() -> int:
     for name, count in trainer["counts"].items():
         kernels[name]["trainer_launches"] = count
 
-    print("[8] profiles of single requests and of one train step", flush=True)
+    print("[8] VGG-16 fine-tune path: full-width steps (bf16 batch "
+          f"{FT_BATCH}, fp32 batch {FT_FP32_BATCH}), Kernels 2 and 4 at its "
+          "sites, the CLI, the artifact writer", flush=True)
+    start = time.perf_counter()
+    finetune, finetune_results = drive_finetune_path(device, card)
+    steps = sum(FT_STEPS.values())
+    want = {k: steps * n + EVAL_LAUNCHES[k] for k, n in
+            FINETUNE_LAUNCHES.items()}
+    if finetune != want:
+        raise AssertionError(f"fine-tune path launches {finetune}, expected "
+                             f"{want}")
+    for name, count in finetune.items():
+        kernels[name]["finetune_launches"] = count
+    for name, rows in check_finetune_pool_sites(device).items():
+        kernels[name]["finetune_batch256"] = rows
+    drive_finetune_cli(device, card)
+    check_artifact_round_trip(device, card)
+    print(f"  phase 8 took {time.perf_counter() - start:.1f} s; bf16 batch "
+          f"{FT_BATCH}: {finetune_results['bfloat16']['ms_per_step']:.2f} "
+          f"ms/step", flush=True)
+
+    print("[9] profiles of single requests, one train step and one "
+          "fine-tune step", flush=True)
     profile_requests(device)
     profile_train_step(device)
+    profile_finetune_step(device)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line())

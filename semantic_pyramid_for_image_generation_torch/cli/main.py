@@ -127,9 +127,10 @@ def check_supported(args) -> None:
     if args.load_checkpoint and not args.load_checkpoint.endswith(".pt"):
         raise ValueError(
             f"--load_checkpoint {args.load_checkpoint}: the port reads "
-            "reference-layout .pt checkpoints only; convert an orbax "
-            "checkpoint with the JAX package's cli/convert_checkpoint.py "
-            "orbax-to-pt (the port's own is a later item)")
+            "reference-layout .pt checkpoints only; the port's "
+            "cli/convert_checkpoint.py has no orbax modes, so convert an "
+            "orbax checkpoint with the JAX package's "
+            "cli/convert_checkpoint.py orbax-to-pt")
 
 
 def config_from_args(args):

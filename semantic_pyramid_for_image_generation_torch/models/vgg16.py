@@ -1,9 +1,10 @@
-"""VGG-16 feature-pyramid extractor, eval mode.
+"""VGG-16: the GAN's frozen feature-pyramid extractor (eval mode) and the
+fine-tuned Places365 classifier (training mode, with dropout).
 
 Counterpart of the JAX package's models/vgg16.py. Returns the 7-level
 semantic pyramid: the activations after each of the 5 max pools
-(shallow->deep, Kernel 2 on CUDA), ReLU(fc7) and the fc8 logits, or only the
-logits with `return_output=True`.
+(shallow->deep, Kernel 2 forward and Kernel 4 backward on CUDA), ReLU(fc7)
+and the fc8 logits, or only the logits with `return_output=True`.
 
 Inputs are (B, 3, H, W) in [-1, 1] (per-image min-max), then
 ImageNet-standardized in float32, as the reference does. The module tree is
@@ -14,7 +15,7 @@ exported JAX parameters load with `strict=True`.
 
 from __future__ import annotations
 
-from typing import List, Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -87,10 +88,16 @@ class VGG16(nn.Module):
                 lecun_normal_(m.weight, rng)
                 m.bias.zero_()
 
-    def forward(self, images: torch.Tensor
+    def forward(self, images: torch.Tensor,
+                dropout_rng: Optional[torch.Generator] = None,
+                dropout_masks: Optional[Sequence[torch.Tensor]] = None
                 ) -> Union[torch.Tensor, List[torch.Tensor]]:
-        if self.training:
-            raise NotImplementedError("VGG16 is frozen: call .eval()")
+        """Training mode (`.train()`, the fine-tune) applies the classifier's
+        two Dropout(0.5) layers, after ReLU(fc6) and after the fc7 tap, with
+        keep masks drawn from `dropout_rng` (a torch.Generator on the
+        images' device; None uses torch's global generator) or given as
+        `dropout_masks` (two boolean (B, fc) tensors, True = kept). Eval
+        mode applies none."""
         dtype = self.dtype
         x = images
         if x.shape[1] == 1:
@@ -114,16 +121,36 @@ class VGG16(nn.Module):
         x = adaptive_avg_pool_2d(x, 7, 7)
         x = torch.flatten(x, 1)  # channel-major, as torch flattens NCHW
         fc6, fc7, fc8 = (self.vgg16.classifier[i] for i in (0, 3, 6))
+        masks = list(dropout_masks) if dropout_masks is not None else None
         x = F.relu(F.linear(x, fc6.weight.to(dtype), fc6.bias.to(dtype)))
+        x = self._dropout(x, dropout_rng, masks)
         x = F.relu(F.linear(x, fc7.weight.to(dtype), fc7.bias.to(dtype)))
-        # the fc7 tap is ReLU(fc7): the reference's in-place ReLU mutates the
-        # tapped tensor
+        # the fc7 tap is ReLU(fc7), before the second dropout: the
+        # reference's in-place ReLU mutates the tapped tensor
         features.append(x)
+        x = self._dropout(x, dropout_rng, masks)
         x = F.linear(x, fc8.weight.to(dtype), fc8.bias.to(dtype))
         features.append(x)
         if self.return_output:
             return x
         return features
+
+    def _dropout(self, x: torch.Tensor, rng: Optional[torch.Generator],
+                 masks: Optional[List[torch.Tensor]]) -> torch.Tensor:
+        """flax Dropout(0.5): where(keep, x / 0.5, 0), keep ~ Bernoulli(0.5)."""
+        if not self.training:
+            return x
+        keep = (masks.pop(0) if masks is not None
+                else dropout_keep_mask(x.shape, x.device, rng))
+        return torch.where(keep, x / 0.5, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+
+
+def dropout_keep_mask(shape, device: torch.device,
+                      rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """A boolean keep mask of Dropout(0.5), each element kept with
+    probability 1/2, drawn from `rng` on `device`."""
+    return torch.rand(shape, generator=rng, device=device) < 0.5
 
 
 def compute_dtype(config: PyramidGANConfig) -> torch.dtype:

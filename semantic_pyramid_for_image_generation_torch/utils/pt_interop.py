@@ -1,22 +1,25 @@
 """The weight bridge: JAX-package parameters and reference `.pt` files into
-the port's state dicts, and the reference-layout GAN checkpoint the port
-writes and reads (`save_reference_gan_checkpoint`,
+the port's state dicts and back, and the reference-layout GAN checkpoint
+the port writes and reads (`save_reference_gan_checkpoint`,
 `load_reference_gan_checkpoint`).
 
 The JAX package's variables are nested dicts of arrays (`params`,
-`spectral`, `batch_stats`; a JAX serving artifact's `weights.npz` holds the
-same trees under `g/` and `vgg/`). The mappings below are an own copy of the
-JAX package's `utils/pt_interop.py::_Exporter` and its generator and
-discriminator exports, which emit the reference torch layout; the port's modules use that layout, so the result loads with
-`strict=True`, and a reference `.pt` loads directly.
+`spectral`, `batch_stats`; a serving artifact's `weights.npz` holds the
+same trees under `g/` and `vgg/`). The key maps below (`generator_layout`,
+`discriminator_layout`) are an own copy of the JAX package's
+`utils/pt_interop.py::_Exporter` and its generator and discriminator
+exports, which emit the reference torch layout; the port's modules use that
+layout, so the result loads with `strict=True`, and a reference `.pt` loads
+directly. The same maps run backwards for the serving-artifact writer
+(`generator_flax_from_state_dict`, `vgg16_flax_from_state_dict`).
 
-Layouts: flax conv HWIO -> torch OIHW; flax dense (in, out) -> torch
+Layouts: flax conv HWIO <-> torch OIHW; flax dense (in, out) <-> torch
 (out, in); spectral u/v, embeddings and BN statistics as they are.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -54,57 +57,107 @@ def _t(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
 
 
-class _Exporter:
-    def __init__(self, variables: Mapping[str, Any]):
-        self.params = _flat(variables.get("params", {}))
-        self.spectral = _flat(variables.get("spectral", {}))
-        self.stats = _flat(variables.get("batch_stats", {}))
-        self.sd: Dict[str, torch.Tensor] = {}
+def _np(value: Any) -> np.ndarray:
+    """A tensor or array as a float32 numpy copy on the host."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().to("cpu", torch.float32).numpy()
+    return np.array(value, dtype=np.float32, copy=True)
 
-    def _spectral(self, src: str, dst: str) -> None:
-        self.sd[f"{dst}.weight_u"] = _t(self.spectral[f"{src}/u"])
-        self.sd[f"{dst}.weight_v"] = _t(self.spectral[f"{src}/v"])
+
+def _set_leaf(tree: Dict[str, Any], path: str, value: Any) -> None:
+    *parents, last = path.split("/")
+    for key in parents:
+        tree = tree.setdefault(key, {})
+    tree[last] = value
+
+
+# the layout transforms: flax -> torch, torch -> flax
+_TO_TORCH = {"conv": lambda a: a.transpose(3, 2, 0, 1),  # HWIO -> OIHW
+             "dense": lambda a: a.T,  # (in, out) -> (out, in)
+             "same": lambda a: a}
+_TO_FLAX = {"conv": lambda a: np.ascontiguousarray(a.transpose(2, 3, 1, 0)),
+            "dense": lambda a: np.ascontiguousarray(a.T),
+            "same": lambda a: a}
+_COLLECTIONS = ("params", "spectral", "batch_stats")
+
+
+class _Layout:
+    """The key map between a network's JAX variables and the port's state
+    dict. `entries` lists (torch key, collection, flax path, kind) in state
+    dict order; kind "conv" / "dense" / "same" names the layout transform,
+    and kind "counter" a batch norm's `num_batches_tracked`, which the JAX
+    package does not keep. `spectral` lists the (flax path, torch prefix) of
+    every spectrally-normalized layer."""
+
+    def __init__(self):
+        self.entries: list = []
+        self.spectral: list = []
+
+    def _add(self, key: str, collection: Optional[str], path: Optional[str],
+             kind: str = "same") -> None:
+        self.entries.append((key, collection, path, kind))
+
+    def _uv(self, src: str, dst: str) -> None:
+        self._add(f"{dst}.weight_u", "spectral", f"{src}/u")
+        self._add(f"{dst}.weight_v", "spectral", f"{src}/v")
+        self.spectral.append((src, dst))
 
     def sn_conv(self, src: str, dst: str) -> None:
-        k = self.params[f"{src}/kernel"]
-        self.sd[f"{dst}.weight_orig"] = _t(k.transpose(3, 2, 0, 1))
-        self.sd[f"{dst}.bias"] = _t(self.params[f"{src}/bias"])
-        self._spectral(src, dst)
+        self._add(f"{dst}.weight_orig", "params", f"{src}/kernel", "conv")
+        self._add(f"{dst}.bias", "params", f"{src}/bias")
+        self._uv(src, dst)
 
     def sn_dense(self, src: str, dst: str) -> None:
-        self.sd[f"{dst}.weight_orig"] = _t(self.params[f"{src}/kernel"].T)
-        self.sd[f"{dst}.bias"] = _t(self.params[f"{src}/bias"])
-        self._spectral(src, dst)
+        self._add(f"{dst}.weight_orig", "params", f"{src}/kernel", "dense")
+        self._add(f"{dst}.bias", "params", f"{src}/bias")
+        self._uv(src, dst)
 
     def sn_embedding(self, src: str, dst: str) -> None:
-        self.sd[f"{dst}.weight_orig"] = _t(self.params[f"{src}/embedding"])
-        self._spectral(src, dst)
+        self._add(f"{dst}.weight_orig", "params", f"{src}/embedding")
+        self._uv(src, dst)
 
     def cbn(self, src: str, dst: str) -> None:
-        self.sd[f"{dst}.embedding.weight"] = _t(self.params[f"{src}/embedding"])
-        self.sd[f"{dst}.batch_norm.running_mean"] = _t(self.stats[f"{src}/mean"])
-        self.sd[f"{dst}.batch_norm.running_var"] = _t(self.stats[f"{src}/var"])
-        self.sd[f"{dst}.batch_norm.num_batches_tracked"] = torch.tensor(0)
+        self._add(f"{dst}.embedding.weight", "params", f"{src}/embedding")
+        self._add(f"{dst}.batch_norm.running_mean", "batch_stats", f"{src}/mean")
+        self._add(f"{dst}.batch_norm.running_var", "batch_stats", f"{src}/var")
+        self._add(f"{dst}.batch_norm.num_batches_tracked", None, None, "counter")
 
     def bn(self, src: str, dst: str) -> None:
-        self.sd[f"{dst}.weight"] = _t(self.params[f"{src}/scale"])
-        self.sd[f"{dst}.bias"] = _t(self.params[f"{src}/bias"])
-        self.sd[f"{dst}.running_mean"] = _t(self.stats[f"{src}/mean"])
-        self.sd[f"{dst}.running_var"] = _t(self.stats[f"{src}/var"])
-        self.sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
+        self._add(f"{dst}.weight", "params", f"{src}/scale")
+        self._add(f"{dst}.bias", "params", f"{src}/bias")
+        self._add(f"{dst}.running_mean", "batch_stats", f"{src}/mean")
+        self._add(f"{dst}.running_var", "batch_stats", f"{src}/var")
+        self._add(f"{dst}.num_batches_tracked", None, None, "counter")
 
     def attention(self, src: str, dst: str) -> None:
         for name in ("query_convolution", "key_convolution",
                      "value_convolution", "attention_convolution"):
             self.sn_conv(f"{src}/{name}", f"{dst}.{name}")
-        self.sd[f"{dst}.gamma"] = _t(self.params[f"{src}/gamma"])
+        self._add(f"{dst}.gamma", "params", f"{src}/gamma")
+
+    def state_dict_from_flax(
+            self, variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        flat = {c: _flat(variables.get(c, {})) for c in _COLLECTIONS}
+        sd = {}
+        for key, collection, path, kind in self.entries:
+            sd[key] = (torch.tensor(0) if kind == "counter"
+                       else _t(_TO_TORCH[kind](flat[collection][path])))
+        return sd
+
+    def flax_from_state_dict(
+            self, sd: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+        tree: Dict[str, Dict[str, Any]] = {c: {} for c in _COLLECTIONS}
+        for key, collection, path, kind in self.entries:
+            if kind != "counter":
+                _set_leaf(tree[collection], path,
+                          _TO_FLAX[kind](_np(sd[key])))
+        return {c: t for c, t in tree.items() if t}
 
 
-def generator_state_dict_from_flax(
-        variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX Generator variables {params, spectral, batch_stats} -> the port's
-    Generator state dict (the reference key layout)."""
-    e = _Exporter(variables)
+def generator_layout() -> _Layout:
+    """The JAX Generator's variables against the port's Generator state dict
+    (the reference key layout)."""
+    e = _Layout()
     e.sn_dense("linear_layer", "linear_layer")
     for i in (1, 2):
         e.sn_dense(f"linear_block_{i}/linear", f"linear_block_{i}.main_block.1")
@@ -125,14 +178,13 @@ def generator_state_dict_from_flax(
     e.bn("final_bn", "final_block.1")
     e.sn_conv("final_conv_1", "final_block.3")
     e.sn_conv("final_conv_2", "final_block.5")
-    return e.sd
+    return e
 
 
-def discriminator_state_dict_from_flax(
-        variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX Discriminator variables {params, spectral} -> the port's
-    Discriminator state dict (the reference key layout)."""
-    e = _Exporter(variables)
+def discriminator_layout() -> _Layout:
+    """The JAX Discriminator's variables against the port's Discriminator
+    state dict (the reference key layout)."""
+    e = _Layout()
     e.sn_conv("block_0/conv_1", "layers.0.main_block.0")
     e.sn_conv("block_0/conv_2", "layers.0.main_block.2")
     e.sn_conv("block_0/residual_conv", "layers.0.residual_mapping")
@@ -146,7 +198,29 @@ def discriminator_state_dict_from_flax(
     e.sn_dense("linear", "layers.11")
     e.sn_dense("classification", "classification")
     e.sn_embedding("embedding", "embedding")
-    return e.sd
+    return e
+
+
+def generator_state_dict_from_flax(
+        variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX Generator variables {params, spectral, batch_stats} -> the port's
+    Generator state dict (the reference key layout)."""
+    return generator_layout().state_dict_from_flax(variables)
+
+
+def discriminator_state_dict_from_flax(
+        variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX Discriminator variables {params, spectral} -> the port's
+    Discriminator state dict (the reference key layout)."""
+    return discriminator_layout().state_dict_from_flax(variables)
+
+
+def generator_flax_from_state_dict(
+        sd: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """The inverse bridge: a port (or reference) Generator state dict -> the
+    JAX Generator's variables {params, spectral, batch_stats} as float32
+    numpy trees."""
+    return generator_layout().flax_from_state_dict(sd)
 
 
 def vgg16_state_dict_from_flax(
@@ -163,6 +237,31 @@ def vgg16_state_dict_from_flax(
         sd[f"vgg16.classifier.{i}.weight"] = _t(p[f"classifier_{i}/kernel"].T)
         sd[f"vgg16.classifier.{i}.bias"] = _t(p[f"classifier_{i}/bias"])
     return sd
+
+
+def vgg16_flax_from_state_dict(
+        sd: Mapping[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse bridge: a port VGG16 state dict (`vgg16.*` keys) -> the
+    JAX VGG16's params tree (`features_i/{kernel,bias}`, `classifier_i/...`)
+    as float32 numpy arrays."""
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    for i in _VGG_CONVS:
+        params[f"features_{i}"] = {
+            "kernel": _TO_FLAX["conv"](_np(sd[f"vgg16.features.{i}.weight"])),
+            "bias": _np(sd[f"vgg16.features.{i}.bias"])}
+    for i in _VGG_FCS:
+        params[f"classifier_{i}"] = {
+            "kernel": _TO_FLAX["dense"](_np(sd[f"vgg16.classifier.{i}.weight"])),
+            "bias": _np(sd[f"vgg16.classifier.{i}.bias"])}
+    return params
+
+
+def vgg16_state_dict_keys() -> list:
+    """The 32 keys of the port's (and the reference's) VGG16 state dict."""
+    return [f"vgg16.{layer}.{i}.{w}"
+            for layer, indices in (("features", _VGG_CONVS),
+                                   ("classifier", _VGG_FCS))
+            for i in indices for w in ("weight", "bias")]
 
 
 def load_torch_file(path: str) -> Mapping[str, Any]:

@@ -398,3 +398,211 @@ def test_device_fid_reduction_on_the_card(cuda, scale):
                 *fid.statistics_from_moments(n, *moments[:2]),
                 *fid.statistics_from_moments(n, *moments[2:]))
             np.testing.assert_allclose(got, want, rtol=1e-3)
+
+
+# --------------------------------------------- the VGG-16 fine-tune -----
+
+# the five max-pool inputs of a fine-tune step at batch 256, 256x256
+FINETUNE_POOLS = [(256, 64, 256, 256), (256, 128, 128, 128),
+                  (256, 256, 64, 64), (256, 512, 32, 32), (256, 512, 16, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", FINETUNE_POOLS)
+def test_max_pool_kernels_at_the_finetune_sites(cuda, dtype, shape):
+    """Kernels 2 and 4 over a whole batch-256 site (pool 1 holds 1.07e9
+    elements), bitwise against their plain versions run on chunks of 32
+    images (the plain backward upcasts to fp32, ~15 GB at once), on
+    tie-heavy inputs."""
+    dt = getattr(torch, dtype)
+    x = _tie_heavy(shape, dt, cuda, seed=shape[1])
+    b, c, h, w = shape
+    gen = torch.Generator(cuda).manual_seed(1)
+    g = _cl(torch.randn((b, c, h // 2, w // 2), generator=gen,
+                        device=cuda).to(dt))
+    out = max_pool_2x2(x)
+    gx = max_pool_2x2_backward(x, g)
+    for i in range(0, b, 32):
+        chunk = slice(i, i + 32)
+        assert torch.equal(out[chunk], max_pool_2x2_plain(x[chunk])), i
+        assert torch.equal(gx[chunk],
+                           max_pool_2x2_backward_plain(x[chunk], g[chunk])), i
+
+
+FT_LR = 1e-4
+# the share of parameter elements that may lie further than 1e-2 lr plus
+# one fp32 ulp from the CPU's: the sound runs read 0.55-0.70%, a gradient
+# rounded through bf16 in the pool backward 1.87% (see the two tests below)
+FT_OFF_LIMIT = 1.2e-2
+
+
+def _tiny_finetune(device, seed: int):
+    """Two fp32 fine-tune steps of a tiny VGG16 (widths / 16, 64x64, 5
+    classes, batch 4) on `device` from the seed's init, batches and pinned
+    dropout masks: ([(loss, top1)] per step, the state dict on the CPU)."""
+    import numpy as np
+
+    from semantic_pyramid_for_image_generation_torch.cli import (
+        vgg16_finetune as ft,
+    )
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.models.vgg16 import (
+        VGG16,
+        dropout_keep_mask,
+    )
+
+    cfg = PyramidGANConfig(vgg_width_factor=16, image_size=64, num_classes=5)
+    init = VGG16(cfg, return_output=True)
+    init.initialize(torch.Generator().manual_seed(seed))
+    with torch.device(device):
+        model = VGG16(cfg, return_output=True)
+    model.load_state_dict(init.state_dict())
+    step = ft.make_finetune_step(model, ft.make_optimizer(model, FT_LR))
+    rng = np.random.default_rng(seed)
+    metrics = []
+    for i in range(2):
+        images = rng.standard_normal((4, 64, 64, 3)).astype(np.float32)
+        labels = rng.integers(0, 5, 4)
+        masks = [dropout_keep_mask((4, cfg.vgg_fc7_dim), torch.device("cpu"),
+                                   torch.Generator().manual_seed(
+                                       100 * seed + 10 * i + j))
+                 for j in range(2)]
+        x, y = ft.batch_to_device(images, labels, device)
+        loss, top1 = step(x, y, dropout_masks=[m.to(device) for m in masks])
+        metrics.append((float(loss), float(top1)))
+    return metrics, {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def _off_elements(got: dict, want: dict) -> tuple:
+    """(the largest |got - want| of any element, and per tensor the
+    elements further than 1e-2 lr plus one fp32 ulp from `want`)."""
+    worst, off = 0.0, {}
+    for key, value in got.items():
+        err = (value - want[key]).abs()
+        worst = max(worst, float(err.max()))
+        off[key] = err > 1e-2 * FT_LR + 2.0 ** -23 * want[key].abs()
+    return worst, off
+
+
+def _count(off: dict) -> int:
+    return sum(int(m.sum()) for m in off.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tiny_finetune_step_on_card_matches_cpu(cuda, monkeypatch, seed):
+    """Two fp32 fine-tune steps of a tiny VGG16 (widths / 16, 64x64, 5
+    classes) on the card against the CPU from the same weights with the
+    same pinned dropout masks: loss within 1e-4 relative, top-1 equal;
+    parameters within 4 * lr everywhere (two Adam steps), and within 1e-2 *
+    lr plus one fp32 ulp on all but FT_OFF_LIMIT of the elements. At these
+    widths the last pool's maps are 2x2 and most gradients are exactly zero
+    (dead ReLUs, dropped units); a sum that lands near zero in another
+    order flips a gradient's sign, and Adam turns a gradient near its eps
+    (1e-8) into a step that follows its size.
+
+    The witness that the kernels are not the cause: the same steps on the
+    card with Kernels 2 and 4 swapped for their plain versions are off on
+    much the same elements (the overlap is printed and must be at least
+    half of either set), and the kernels launch 10 times each in the first
+    run, none in the second."""
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.ops.cuda import pool
+
+    cpu_metrics, want = _tiny_finetune(torch.device("cpu"), seed)
+    kernels.reset_launch_counts()
+    runs = {"kernels": _tiny_finetune(cuda, seed)}
+    counts = kernels.launch_counts()
+    assert counts["max_pool_2x2"] == 10 and counts["max_pool_2x2_backward"] == 10
+    monkeypatch.setattr(pool, "max_pool_2x2", max_pool_2x2_plain)
+    monkeypatch.setattr(pool, "max_pool_2x2_backward",
+                        max_pool_2x2_backward_plain)
+    runs["plain"] = _tiny_finetune(cuda, seed)
+    assert kernels.launch_counts() == counts
+    off = {}
+    for route, (metrics, got) in runs.items():
+        for (loss, top1), (cpu_loss, cpu_top1) in zip(metrics, cpu_metrics):
+            assert abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss), route
+            assert top1 == cpu_top1, route
+        worst, off[route] = _off_elements(got, want)
+        assert worst <= 4 * FT_LR, (route, worst)
+    n = {route: _count(o) for route, o in off.items()}
+    both = sum(int((off["kernels"][k] & off["plain"][k]).sum()) for k in want)
+    total = sum(m.numel() for m in want.values())
+    route_diff = max(float((runs["kernels"][1][k] - runs["plain"][1][k])
+                           .abs().max()) for k in want)
+    print(f"seed {seed}: off with the kernels {n['kernels']}, with the plain "
+          f"pools {n['plain']}, on both {both}, of {total} elements; "
+          f"kernels vs plain on the card max |difference| {route_diff:.3g}")
+    for route in off:
+        assert n[route] <= FT_OFF_LIMIT * total, (route, n[route], total)
+    assert 2 * both >= max(n.values()), (n, both)
+
+
+def _dropped_last_window_row(x, g):
+    gx = max_pool_2x2_backward_plain(x, g)
+    gx[:, :, -2:] = 0
+    return gx
+
+
+def _dropped_last_image_at_pool1(x, g):
+    gx = max_pool_2x2_backward_plain(x, g)
+    if x.shape[-1] == 64:
+        gx[-1] = 0
+    return gx
+
+
+def _gradient_through_bf16(x, g):
+    return max_pool_2x2_backward_plain(x, g.bfloat16().float())
+
+
+def _first_max_takes_ties(x, g):
+    _, index = torch.nn.functional.max_pool2d(x, 2, return_indices=True)
+    return torch.ops.aten.max_pool2d_with_indices_backward(
+        g, x, [2, 2], [2, 2], [0, 0], [1, 1], False, index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault, caught", [
+    (_dropped_last_window_row, True), (_dropped_last_image_at_pool1, True),
+    (_gradient_through_bf16, True), (_first_max_takes_ties, False)])
+def test_tiny_finetune_card_check_against_planted_faults(cuda, monkeypatch,
+                                                         fault, caught):
+    """The card-vs-CPU check above (seed 0) with a fault planted in the
+    card's max-pool backward: prints the share of elements off, which
+    FT_OFF_LIMIT must catch. A wrong tie rule is the one fault it cannot
+    see: with random inputs every tied window holds dead ReLUs, whose
+    gradient the ReLU backward drops whatever the pool routed there. The
+    tie rule is held bitwise on tie-heavy inputs instead
+    (test_max_pool_kernels_at_the_finetune_sites)."""
+    from semantic_pyramid_for_image_generation_torch.ops.cuda import pool
+
+    _, want = _tiny_finetune(torch.device("cpu"), 0)
+    monkeypatch.setattr(pool, "max_pool_2x2_backward", fault)
+    _, got = _tiny_finetune(cuda, 0)
+    worst, off = _off_elements(got, want)
+    share = _count(off) / sum(m.numel() for m in off.values())
+    print(f"{fault.__name__}: {100 * share:.3f}% of elements off (limit "
+          f"{100 * FT_OFF_LIMIT:g}%), max |difference| {worst / FT_LR:.3f} lr")
+    assert (share > FT_OFF_LIMIT) == caught, fault.__name__
+
+
+@pytest.mark.cuda
+def test_dropout_masks_from_a_seeded_generator_repeat(cuda):
+    from semantic_pyramid_for_image_generation_torch.cli.vgg16_finetune import (
+        dropout_generator,
+    )
+    from semantic_pyramid_for_image_generation_torch.models.vgg16 import (
+        dropout_keep_mask,
+    )
+
+    shape = (256, 4096)
+    a = dropout_keep_mask(shape, cuda, dropout_generator(3, 7, cuda))
+    b = dropout_keep_mask(shape, cuda, dropout_generator(3, 7, cuda))
+    c = dropout_keep_mask(shape, cuda, dropout_generator(3, 8, cuda))
+    assert a.device.type == "cuda" and a.dtype == torch.bool
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert 0.49 < float(a.float().mean()) < 0.51

@@ -66,7 +66,10 @@ def test_scan_covers_the_package():
                      "utils/logger.py", "utils/profiling.py", "data/native.py",
                      "data/places365.py", "models/inception.py",
                      "train/checkpoint.py", "eval/fid.py", "train/loop.py",
-                     "cli/main.py"):
+                     "cli/main.py", "data/image_folder.py",
+                     "cli/vgg16_finetune.py", "cli/vgg16_infer.py",
+                     "cli/convert_checkpoint.py", "cli/export_serving.py",
+                     "serving/export.py"):
         assert expected in names
 
 

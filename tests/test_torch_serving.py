@@ -197,6 +197,54 @@ def test_generate_cli_writes_pngs(tmp_path):
     assert Image.open(out / "in_level6_s0.png").size == (256, 256)
 
 
+def test_concurrent_clients_each_get_their_own_response():
+    """Six threads post distinct /generate requests at once to the HTTP
+    server on the CPU plain path. The service serializes the model calls
+    through one lock; each reply must be the one its request gets alone
+    (PNG for PNG, exactly), and the six requests' images all differ, so a
+    reply handed to the wrong client would show."""
+    cfg = PyramidGANConfig().tiny()
+    g, v = make_models(cfg, CPU, torch.Generator().manual_seed(0))
+    service = GenerateService(ServingArtifact.from_modules(g, v, (1, 2)))
+    requests = [{"image_b64": _png_b64(i % 2), "level": i % 7,
+                 "class_id": None if i == 5 else i, "num_samples": 1 + i % 2,
+                 "seed": 10 + i} for i in range(6)]
+    want = [service.generate(r) for r in requests]
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/generate"
+    replies, errors = [None] * len(requests), []
+    barrier = threading.Barrier(len(requests))
+
+    def client(i):
+        try:
+            barrier.wait(timeout=30)
+            body = json.dumps(requests[i]).encode()
+            replies[i] = json.loads(urllib.request.urlopen(
+                urllib.request.Request(url, data=body, method="POST"),
+                timeout=300).read())
+        except Exception as e:  # reported below, in the test's thread
+            errors.append((i, e))
+
+    clients = [threading.Thread(target=client, args=(i,))
+               for i in range(len(requests))]
+    try:
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    assert not errors, errors
+    for got, w in zip(replies, want):
+        assert got == w
+    firsts = [r["images"][0] for r in replies]
+    assert len(set(firsts)) == len(firsts)
+
+
 # ---------------------------------------------------------------- (h) -----
 
 
