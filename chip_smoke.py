@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
-the fused G/D train step, the Trainer and the VGG-16 fine-tune.
+the fused G/D train step, the Trainer, the VGG-16 fine-tune and data-parallel
+training.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -77,10 +78,35 @@ Phases; any failure raises and exits non-zero, before the result lines:
     one warm train step at batch 16 per dtype, and over one warm bf16
     fine-tune step at batch 256: device time by kernel and by kind of op,
     the kernels' share, the device's busy share.
-10. The `kernels` JSON line (launches from the train path; the serving,
-    Trainer and fine-tune paths' as `serving_launches`, `trainer_launches`,
-    `finetune_launches`; Kernels 2 and 4 at the fine-tune's sites as
-    `finetune_batch256`), the card line again, and last the device line.
+10. Data parallelism (parallel/mesh.py). The card machine has one card, so
+    this is two gloo ranks sharing it and one rank over NCCL: the
+    arithmetic, not a multi-card speed. (a) Two ranks spawned (the spawn
+    start method) on cuda:0, full width, bf16, 32 rows each of global
+    batches of 64, 3 steps: per rank, launch deltas exactly as phase 6's per
+    step, ms per step, the bytes all-reduced and all-gathered per step;
+    after the steps G, D, both Adam states, u/v and running statistics
+    bitwise equal on both ranks (sha256). (b) The same two ranks in fp32,
+    8 rows each of global batches of 16 with pinned latents, 2 steps,
+    against this process stepping the 16 rows from the same state: every
+    metric within 1e-4 relative, at most 0.1% of G's and of D's elements
+    further than 1% of an Adam step, the first step's gradients within
+    1e-3 relative L2 per network and for the projection's embedding, each
+    limit raised to 4x what a witness reads (this process stepping the
+    same rows with each half reversed: the same arithmetic in another
+    summation order); ranks bitwise equal. (c) Four planted faults, each a global reduction
+    made local (batch-norm moments, diversity halves, projection rows,
+    gradients averaged instead of summed), each must break (b)'s hold.
+    (d) One rank over NCCL in this process: bf16 batch-64 steps timed
+    without a group and in it; the Trainer at batch 64 (4 steps, the
+    epoch-end grid and checkpoint; launches counted) and one validation
+    from G and the eval generator as phase 7's last validation had them,
+    on its batches: moments and FID equal to phase 7's. Ranks are joined
+    within 300 s and killed past it; the group has a 120 s timeout.
+11. The `kernels` JSON line (launches from the train path; the serving,
+    Trainer, fine-tune and rank-0 (a) paths' as `serving_launches`,
+    `trainer_launches`, `finetune_launches`, `parallel_rank_launches`;
+    Kernels 2 and 4 at the fine-tune's sites as `finetune_batch256`), the
+    card line again, and last the device line.
 
 Imports torch, numpy and the port only; needs one card and no network.
 """
@@ -967,6 +993,19 @@ def drive_trainer_path(device, card: str, step_images_per_s: float) -> dict:
     fid_eval.reduce_moments = clock.wrap("host statistics",
                                          fid_eval.reduce_moments)
     sec = clock.seconds
+    # phase 10 (d) validates again over NCCL from what G and the eval
+    # generator hold before the last validation
+    before_validation: dict = {}
+    timed_validate = first.validate
+
+    def validate():
+        before_validation.update(
+            rng=first.rng.get_state(),
+            generator={k: v.clone() for k, v in
+                       first.state.generator.state_dict().items()})
+        return timed_validate()
+
+    first.validate = validate
     laps = []  # host seconds of each train_step call, no sync added
 
     def lap(batch, train_step=first.train_step):
@@ -1003,8 +1042,8 @@ def drive_trainer_path(device, card: str, step_images_per_s: float) -> dict:
     losses = metrics["loss_generator"]
     if len(losses) != TRAINER_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"logged losses {losses}")
-    n, totals = fid_eval.last_moments
-    fid_host = metrics["fid"][0]
+    n, totals = fid_eval.last_moments  # the last validation's
+    fid_host = metrics["fid"][-1]
     t0 = time.perf_counter()
     fid_device = reduce_moments(n, totals, device_statistics=True)
     device_stats_s = time.perf_counter() - t0
@@ -1098,7 +1137,9 @@ def drive_trainer_path(device, card: str, step_images_per_s: float) -> dict:
           f"{sec['save_checkpoint']:.3f} s, restore {restore_s:.3f} s, "
           f"{os.path.getsize(ckpt):,} bytes", flush=True)
     shutil.rmtree(workdir)
-    return {"images_per_s": images_per_s, "counts": counts}
+    return {"images_per_s": images_per_s, "counts": counts,
+            "validation": dict(before_validation, val_set=val_set, n=n,
+                               totals=totals, fid_device=fid_device)}
 
 
 # ---------------------------------------------------------------- phase 8 --
@@ -1663,6 +1704,534 @@ def profile_finetune_step(device) -> None:
                                  ft.dropout_generator(0, 1, device)))
 
 
+# --------------------------------------------------------------- phase 10 --
+
+
+DP_WORLD = 2  # gloo ranks sharing the one card
+DP_BF16_BATCH = 64  # global: 32 rows per rank
+DP_BF16_STEPS = 3
+DP_FP32_BATCH = 16  # global: 8 rows per rank
+DP_FP32_STEPS = 2
+DP_FAULTS = ("bn_local", "diversity_local", "projection_local",
+             "grads_averaged")
+# the hold of (b): ROADMAP Queue 3's rule, plus the gradients (Adam divides
+# out most of their scale) and the projection's embedding gradient. Each
+# limit is the larger of its floor here and DP_WITNESS_FACTOR times the
+# witness's reading: one process stepping the same rows with each half
+# reversed, the same arithmetic in another summation order (at full width
+# fp32 noise alone puts ~0.9% of G's elements past 1% of an Adam step)
+DP_LIMITS = {"metrics": 1e-4, "generator_off": 1e-3, "discriminator_off": 1e-3,
+             "generator_grads": 1e-3, "discriminator_grads": 1e-3,
+             "embedding_grads": 1e-3}
+DP_WITNESS_FACTOR = 4
+DP_TIMEOUT_S = 300
+NCCL_BATCH = 64
+NCCL_STEPS = 4
+
+
+def rows_of(batch: dict, rows) -> dict:
+    """Rows (a slice or an index array) of a numpy batch (masks a tuple)."""
+    out = {k: v[rows] for k, v in batch.items() if k != "masks"}
+    out["masks"] = tuple(m[rows] for m in batch["masks"])
+    return out
+
+
+def state_digest(state) -> str:
+    """sha256 over G's and D's state dicts and both Adam states: parameters,
+    u/v, running statistics, moments and step counts."""
+    import hashlib
+
+    digest = hashlib.sha256()
+
+    def feed(tree):
+        if isinstance(tree, torch.Tensor):
+            t = tree.detach().reshape(-1).contiguous().cpu()
+            digest.update(str(t.dtype).encode())
+            digest.update(t.view(torch.uint8).numpy().tobytes())
+        elif isinstance(tree, dict):
+            for k in tree:
+                digest.update(str(k).encode())
+                feed(tree[k])
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                feed(v)
+        else:
+            digest.update(repr(tree).encode())
+
+    for net in ("generator", "discriminator"):
+        feed(getattr(state, net).state_dict())
+        feed(getattr(state, f"{net[0]}_optimizer").state_dict())
+    return digest.hexdigest()
+
+
+def gradients(state) -> dict:
+    return {net: {k: p.grad.detach().clone() for k, p in
+                  getattr(state, net).named_parameters() if p.grad is not None}
+            for net in ("generator", "discriminator")}
+
+
+def reversed_halves(batch: dict) -> dict:
+    """The batch with each half's rows reversed: the diversity loss pairs
+    the same rows (i with i + B/2), and every other reduction over the batch
+    is a sum, so the step computes the same in another summation order."""
+    half = batch["images"].shape[0] // 2
+    order = np.arange(2 * half).reshape(2, half)[:, ::-1].reshape(-1)
+    return rows_of(batch, order)
+
+
+def dp_reference(device, workdir: str) -> dict:
+    """(b)'s reference, in this process without a group: a full-width fp32
+    state from SEED (u/v advanced 10 iterations) steps the global batches of
+    16 with pinned latents. The initial state and the batches go to
+    `inputs.pt` for the ranks; the metrics, the first step's gradients and
+    the final G and D to `reference.pt`. Then the witness steps the same
+    rows with each half reversed from the same state; its readings against
+    the reference are returned."""
+    import os
+
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from semantic_pyramid_for_image_generation_torch.models.layers import (
+        advance_spectral_norm_,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        init_train_state,
+        make_optimizers,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        batch_to_device,
+        make_train_step,
+    )
+
+    config = PyramidGANConfig(compute_dtype="float32")
+    state = init_train_state(config, device, lr=LR, seed=SEED)
+    for net in (state.generator, state.discriminator):
+        advance_spectral_norm_(net, 10)
+    rng = np.random.default_rng(SEED + 10)
+    batches = []
+    for _ in range(DP_FP32_STEPS):
+        batch = synthetic_batch(config, DP_FP32_BATCH, rng)
+        for key in ("noise_d", "noise_g"):
+            batch[key] = rng.standard_normal(
+                (DP_FP32_BATCH, config.latent_dim)).astype(np.float32)
+        batches.append(batch)
+    inputs = {"batches": batches}
+    for net in ("generator", "discriminator", "vgg"):
+        inputs[net] = {k: v.cpu().clone() for k, v in
+                       getattr(state, net).state_dict().items()}
+    torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+    step = make_train_step()
+    runs = []
+    for rows in (lambda b: b, reversed_halves):
+        for net in ("generator", "discriminator"):
+            getattr(state, net).load_state_dict(inputs[net])
+        state.g_optimizer, state.d_optimizer = make_optimizers(
+            state.generator, state.discriminator, LR)
+        run = {"metrics": []}
+        for batch in batches:
+            _, m = step(state, batch_to_device(rows(batch), device))
+            run["metrics"].append({k: float(v) for k, v in m.items()})
+            run.setdefault("grads", gradients(state))
+        for net in ("generator", "discriminator"):
+            run[net] = {k: v.clone() for k, v in
+                        getattr(state, net).state_dict().items()}
+        runs.append(run)
+    torch.save(runs[0], os.path.join(workdir, "reference.pt"))
+    return dp_readings(runs[1], runs[0])
+
+
+def dp_readings(got: dict, ref: dict) -> dict:
+    """A run's readings under the names of DP_LIMITS against the one-process
+    reference: the worst relative metric error; per network the share of
+    parameter elements further than 1% of an Adam step plus one fp32 ulp
+    and the relative L2 error of the first step's gradients; the relative
+    L2 error of the projection embedding's first gradient."""
+    def rel(a: dict, b: dict) -> float:
+        num = sum(float((a[k] - b[k]).float().square().sum()) for k in b)
+        den = sum(float(b[k].float().square().sum()) for k in b)
+        return (num / den) ** 0.5
+
+    readings = {"metrics": max(
+        abs(g[k] - w[k]) / abs(w[k])
+        for g, w in zip(got["metrics"], ref["metrics"]) for k in w)}
+    for net in ("generator", "discriminator"):
+        off = total = 0
+        for key in ref["grads"][net]:
+            want = ref[net][key]
+            err = (got[net][key] - want).abs()
+            off += int((err > 1e-2 * LR + 2.0 ** -22 * want.abs()).sum())
+            total += err.numel()
+        readings[f"{net}_off"] = off / total
+        readings[f"{net}_grads"] = rel(got["grads"][net], ref["grads"][net])
+    key = "embedding.weight_orig"
+    readings["embedding_grads"] = rel(
+        {key: got["grads"]["discriminator"][key]},
+        {key: ref["grads"]["discriminator"][key]})
+    return readings
+
+
+def broken(readings: dict, limits: dict) -> list:
+    return [k for k, limit in limits.items() if not readings[k] <= limit]
+
+
+def planted(fault: str):
+    """A context that replaces one global reduction with its local form
+    (as tests/torch_parallel_rank.py plants it)."""
+    import contextlib
+
+    from semantic_pyramid_for_image_generation_torch.models import (
+        discriminator,
+        layers,
+    )
+    from semantic_pyramid_for_image_generation_torch.parallel import mesh
+    from semantic_pyramid_for_image_generation_torch.train import losses, step
+
+    def averaged(module):
+        mesh.all_reduce_gradients(module)
+        for p in module.parameters():
+            if p.grad is not None:
+                p.grad.div_(mesh.world_size())
+
+    @contextlib.contextmanager
+    def plant():
+        if fault == "sound":
+            yield
+            return
+        module, name, replacement = {
+            "bn_local": (layers, "all_reduce_sum", lambda x: x),
+            "diversity_local": (losses, "all_gather_rows", lambda x: x),
+            "projection_local": (discriminator, "all_gather_rows",
+                                 lambda x: x),
+            "grads_averaged": (step, "all_reduce_gradients", averaged),
+        }[fault]
+        original = getattr(module, name)
+        setattr(module, name, replacement)
+        try:
+            yield
+        finally:
+            setattr(module, name, original)
+
+    return plant()
+
+
+def dp_bf16_steps(device) -> dict:
+    """(a): full-width bf16 from SEED, broadcast from rank 0, 3 steps of this
+    rank's 32 rows of global batches of 64; launches, ms and collective
+    bytes per step, and the state's digest after."""
+    from semantic_pyramid_for_image_generation_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.parallel import mesh
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        batch_to_device,
+        make_train_step,
+    )
+
+    state = trainer_state(device)
+    mesh.broadcast_state(state)
+    rows = mesh.shard_slice(DP_BF16_BATCH, DP_WORLD, mesh.rank())
+    rng = np.random.default_rng(SEED)
+    batches = [batch_to_device(rows_of(synthetic_batch(
+        state.generator.config, DP_BF16_BATCH, rng), rows), device)
+        for _ in range(DP_BF16_STEPS)]
+    step = make_train_step()
+    latents = torch.Generator(device).manual_seed(SEED)
+    steps = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for batch in batches:
+        before, sent = kernels.launch_counts(), dict(mesh.collective_bytes)
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch, latents)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = kernels.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        if delta != TRAIN_LAUNCHES:
+            raise AssertionError(f"rank {mesh.rank()} step launches {delta}")
+        values = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in values.values()):
+            raise AssertionError(f"non-finite losses {values}")
+        steps.append({"ms": ms, "launches": delta, "metrics": values,
+                      "bytes": {k: mesh.collective_bytes[k] - sent[k]
+                                for k in sent}})
+    return {"steps": steps, "launches": kernels.launch_counts(),
+            "digest": state_digest(state),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def dp_fp32_runs(device, workdir: str) -> dict:
+    """(b) and (c): the sound fp32 run and one run per planted fault, each
+    from the reference's initial state, 2 steps of this rank's 8 rows; each
+    run's digest, and on rank 0 its readings against the reference."""
+    import os
+
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.parallel import mesh
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        init_train_state,
+        make_optimizers,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        batch_to_device,
+        make_train_step,
+    )
+
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    ref = torch.load(os.path.join(workdir, "reference.pt"), map_location=device,
+                     weights_only=False) if mesh.rank() == 0 else None
+    state = init_train_state(PyramidGANConfig(compute_dtype="float32"),
+                             device, lr=LR)
+    state.vgg.load_state_dict(inputs["vgg"])
+    rows = mesh.shard_slice(DP_FP32_BATCH, DP_WORLD, mesh.rank())
+    batches = [batch_to_device(rows_of(b, rows), device)
+               for b in inputs["batches"]]
+    step = make_train_step()
+    out = {}
+    for run in ("sound", *DP_FAULTS):
+        for net in ("generator", "discriminator"):
+            getattr(state, net).load_state_dict(inputs[net])
+        state.g_optimizer, state.d_optimizer = make_optimizers(
+            state.generator, state.discriminator, LR)
+        state.step = 0
+        mesh.broadcast_state(state)
+        got = {"metrics": []}
+        with planted(run):
+            for batch in batches:
+                _, m = step(state, batch)
+                got["metrics"].append({k: float(v) for k, v in m.items()})
+                got.setdefault("grads", gradients(state))
+        for net in ("generator", "discriminator"):
+            got[net] = getattr(state, net).state_dict()
+        out[run] = {"digest": state_digest(state)}
+        if ref is not None:
+            out[run]["readings"] = dp_readings(got, ref)
+    return out
+
+
+def dp_rank(rank: int, workdir: str, port: int) -> None:
+    """One gloo rank of phase 10 on cuda:0 (spawned): (a), then (b) and (c);
+    its results to `<workdir>/rank<r>.json`."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
+                      LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    from semantic_pyramid_for_image_generation_torch.parallel import mesh
+
+    device = mesh.init_distributed("cuda", backend="gloo")
+    out = {"bf16": dp_bf16_steps(device)}
+    torch.cuda.empty_cache()
+    out["fp32"] = dp_fp32_runs(device, workdir)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    mesh.shutdown_distributed()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def drive_gloo_ranks(device, card: str) -> dict:
+    """(a)-(c): the reference in this process, then two spawned gloo ranks
+    on cuda:0, joined within DP_TIMEOUT_S (killed and failed past it)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    t0 = time.perf_counter()
+    witness = dp_reference(device, workdir)
+    limits = {k: max(floor, DP_WITNESS_FACTOR * witness[k])
+              for k, floor in DP_LIMITS.items()}
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    ctx = mp.start_processes(dp_rank, args=(workdir, free_port()),
+                             nprocs=DP_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"the gloo ranks ran past {DP_TIMEOUT_S} s")
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(workdir)
+    ranks_s = time.perf_counter() - t0 - ref_s
+
+    bf16 = [r["bf16"] for r in ranks]
+    if len({r["digest"] for r in bf16}) != 1:
+        raise AssertionError("(a) the ranks' states differ after the steps")
+    for r, run in enumerate(bf16):
+        ms = [round(s["ms"], 2) for s in run["steps"]]
+        print(f"  (a) {card}: rank {r}, bf16, {DP_BF16_BATCH // DP_WORLD} "
+              f"of {DP_BF16_BATCH} rows: ms per step "
+              f"{ms}; launches per step {run['steps'][-1]['launches']} "
+              f"(all {DP_BF16_STEPS} steps exact); collective bytes per "
+              f"step {run['steps'][-1]['bytes']}; peak "
+              f"{run['peak_gib']:.2f} GiB", flush=True)
+    print(f"  (a) G, D, Adam moments, u/v and running statistics bitwise "
+          f"equal on both ranks (sha256 {bf16[0]['digest'][:16]}); last "
+          f"losses {bf16[0]['steps'][-1]['metrics']}. Two ranks sharing one "
+          f"card over gloo: a check of the arithmetic, not a multi-card "
+          f"speed", flush=True)
+    runs = [r["fp32"] for r in ranks]
+    if runs[0]["sound"]["digest"] != runs[1]["sound"]["digest"]:
+        raise AssertionError("(b) the ranks' states differ")
+    sound = runs[0]["sound"]["readings"]
+    print(f"  (b) fp32, one process on the {DP_FP32_BATCH} rows with each "
+          f"half reversed (the witness) vs the same rows in order: readings "
+          f"{witness}; limits, the larger of {DP_LIMITS} and "
+          f"{DP_WITNESS_FACTOR}x the witness: {limits}", flush=True)
+    print(f"  (b) fp32, {DP_WORLD} ranks x {DP_FP32_BATCH // DP_WORLD} rows "
+          f"vs one process on the {DP_FP32_BATCH}, {DP_FP32_STEPS} steps: "
+          f"readings {sound}; ranks bitwise equal", flush=True)
+    if broken(sound, limits):
+        raise AssertionError(f"(b) the two ranks break "
+                             f"{broken(sound, limits)}")
+    for fault in DP_FAULTS:
+        readings = runs[0][fault]["readings"]
+        print(f"  (c) planted {fault}: breaks {broken(readings, limits)}; "
+              f"readings {readings}", flush=True)
+        if not broken(readings, limits):
+            raise AssertionError(f"(c) the hold missed {fault}")
+    print(f"  (a)-(c): reference {ref_s:.1f} s, ranks {ranks_s:.1f} s",
+          flush=True)
+    return {"launches": bf16[0]["launches"],
+            "ms": [s["ms"] for s in bf16[0]["steps"]]}
+
+
+def drive_nccl_trainer(device, card: str, phase7: dict,
+                       step_ms_16: float) -> None:
+    """(d): one rank over NCCL in this process. bf16 bare steps at batch 64
+    timed without a group and then in a one-rank NCCL group; the Trainer at
+    batch 64 in that group: 4 steps, the epoch-end grid and checkpoint, and
+    one validation from G and the eval generator as phase 7's last
+    validation had them, on phase 7's batches: the same moments and FID."""
+    import glob
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    from semantic_pyramid_for_image_generation_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.parallel import mesh
+    from semantic_pyramid_for_image_generation_torch.train.loop import Trainer
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        make_train_step,
+    )
+
+    state = trainer_state(device)
+    config = state.generator.config
+    batches = train_batches(config, NCCL_BATCH, NCCL_STEPS, device)
+    step = make_train_step()
+    latents = torch.Generator(device).manual_seed(SEED)
+
+    def timed():
+        times = []
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            step(state, batch, latents)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    step(state, batches[0], latents)  # first at this shape
+    torch.cuda.synchronize()
+    bare = timed()
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    rank_device = mesh.init_distributed("cuda")
+    if rank_device != torch.device("cuda", 0) or \
+            torch.distributed.get_backend() != "nccl":
+        raise AssertionError(f"the one-rank group is "
+                             f"{torch.distributed.get_backend()} on "
+                             f"{rank_device}, not NCCL on cuda:0")
+    mesh.reset_collective_bytes()
+    grouped = timed()
+    sent = {k: v // len(grouped) for k, v in mesh.collective_bytes.items()}
+    del state, batches
+    torch.cuda.empty_cache()
+
+    has_pil = importlib.util.find_spec("PIL") is not None
+    rng = np.random.default_rng(SEED)
+    train_set = [synthetic_batch(config, NCCL_BATCH, rng)
+                 for _ in range(NCCL_STEPS)]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random-init FID warning
+        trainer = Trainer(config, train_set, phase7["val_set"], lr=LR,
+                          device=device, save_data_path=workdir, seed=SEED,
+                          state=trainer_state(device), allow_random_fid=True,
+                          fid_device_stats=True, write_grids=has_pil)
+    laps = []
+    train_step = trainer.train_step
+
+    def lap(batch):
+        t0 = time.perf_counter()
+        out = train_step(batch)
+        torch.cuda.synchronize()
+        laps.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer.train_step = lap
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    trainer.train(epochs=1, validate_after_n_iterations=10 ** 9,
+                  validate_at_start=False, progress=False)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {k: NCCL_STEPS * TRAIN_LAUNCHES[k] + GENERATE_LAUNCHES[k]
+            for k in counts}
+    if counts != want:
+        raise AssertionError(f"(d) Trainer launches {counts}, expected {want}")
+    (ckpt,) = glob.glob(os.path.join(trainer.paths["models"], "*.pt"))
+    grid = trainer.last_grid
+    if grid.shape != (49, 256, 256, 3) or not np.isfinite(grid).all():
+        raise AssertionError(f"(d) grid {grid.shape}")
+    trainer.state.generator.load_state_dict(phase7["generator"])
+    trainer.rng.set_state(phase7["rng"])
+    fid = trainer.validate()
+    n, totals = trainer.fid_evaluator.last_moments
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(totals, phase7["totals"]))
+    print(f"  (d) {card}: one rank over NCCL, bf16 batch {NCCL_BATCH}: bare "
+          f"step without a group {[round(t, 2) for t in bare]} ms, in the "
+          f"group {[round(t, 2) for t in grouped]} ms (collective bytes per "
+          f"step {sent}; phase 6's bare step at batch {BATCH}: "
+          f"{step_ms_16:.2f} ms); Trainer ms per step "
+          f"{[round(t, 2) for t in laps]}; launches {counts} ({NCCL_STEPS} "
+          f"steps, one grid); {os.path.basename(ckpt)} written; FID from "
+          f"phase 7's last G and eval generator on its batches: {fid!r} "
+          f"against phase 7's {phase7['fid_device']!r} (device float32 "
+          f"eigh), n {n}, moments max |difference| {diff:.3g}", flush=True)
+    if n != phase7["n"] or diff != 0.0 or fid != phase7["fid_device"]:
+        raise AssertionError("(d) the NCCL Trainer's FID differs from "
+                             "phase 7's")
+    shutil.rmtree(workdir)
+    mesh.shutdown_distributed()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs an NVIDIA "
@@ -1737,6 +2306,19 @@ def main() -> int:
     profile_requests(device)
     profile_train_step(device)
     profile_finetune_step(device)
+
+    print("[10] data parallel: two gloo ranks on the card (bf16 steps, the "
+          "fp32 hold and its planted faults), then one rank over NCCL",
+          flush=True)
+    start = time.perf_counter()
+    parallel = drive_gloo_ranks(device, card)
+    for name, count in parallel["launches"].items():
+        if count == 0:
+            raise AssertionError(f"{name} was never launched on a rank")
+        kernels[name]["parallel_rank_launches"] = count
+    drive_nccl_trainer(device, card, trainer["validation"],
+                       train_results["bfloat16"]["ms_per_step"])
+    print(f"  phase 10 took {time.perf_counter() - start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line())

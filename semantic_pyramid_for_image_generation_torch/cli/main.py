@@ -13,9 +13,19 @@ except:
     directory raises;
   * `--pallas` is accepted; `--no-pallas` on `cuda` raises: the port has no
     kernel-free path on the card;
+  * `--multihost` trains one model on N processes, one device each, as
+    torchrun launches them (data parallelism, parallel/mesh.py): nccl on
+    `cuda` (cuda:LOCAL_RANK), gloo with `--device cpu`. The batch size is
+    the global batch, rounded to a multiple of the world size, and each
+    rank loads its rows of it:
+
+        torchrun --nproc_per_node N -m \
+            semantic_pyramid_for_image_generation_torch.cli.main \
+            --multihost --train --path_to_places365 places365_standard
+
   * modes the port does not have yet raise NotImplementedError: `--fsdp` > 1
-    and `--multihost` (multi-device training), `--fused_d`, `--remat_vgg`
-    and `--remat_blocks` (perf modes);
+    (sharded state), `--fused_d`, `--remat_vgg` and `--remat_blocks` (perf
+    modes);
   * `--gpus_to_use` and `--use_data_parallel` are accepted and ignored, as
     in the JAX package.
 """
@@ -102,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also stream metrics to TensorBoard under "
                         "<metrics dir>/tensorboard")
     p.add_argument("--multihost", default=False, action="store_true",
-                   help="not in the port yet (raises)")
+                   help="data-parallel training on the processes torchrun "
+                        "launches (nccl on cuda, gloo on cpu)")
     p.add_argument("--fsdp", type=int, default=1,
                    help="not in the port yet: values above 1 raise")
     return p
@@ -110,8 +121,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_supported(args) -> None:
     """Raise for flags of modes the port does not have yet."""
-    waiting = [(args.fsdp > 1, "--fsdp > 1", "13 (multi-device training)"),
-               (args.multihost, "--multihost", "13 (multi-device training)"),
+    waiting = [(args.fsdp > 1, "--fsdp > 1",
+                "16 (FSDP; item 13 brought the data axis only)"),
                (args.fused_d, "--fused_d", "6 (perf modes)"),
                (args.remat_vgg, "--remat_vgg", "6 (perf modes)"),
                (args.remat_blocks, "--remat_blocks", "6 (perf modes)")]
@@ -152,6 +163,11 @@ def build_trainer(args):
         Places365,
         Places365Loader,
     )
+    from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
+        init_distributed,
+        rank,
+        world_size,
+    )
     from semantic_pyramid_for_image_generation_torch.train.checkpoint import (
         restore_checkpoint,
     )
@@ -168,7 +184,16 @@ def build_trainer(args):
         vgg16_state_dict_from_torch,
     )
 
-    device = resolve_device(args.device)
+    if args.multihost:
+        device = init_distributed(args.device.split(":")[0])
+    else:
+        device = resolve_device(args.device)
+    world = world_size()
+    if args.batch_size % world:
+        rounded = max(world, (args.batch_size // world) * world)
+        print(f"batch_size {args.batch_size} -> {rounded} (a multiple of the "
+              f"{world} ranks)")
+        args.batch_size = rounded
     config = config_from_args(args)
     state = init_train_state(config, device, lr=args.lr, seed=args.seed)
     if args.load_pretrained_vgg16 and os.path.exists(args.load_pretrained_vgg16):
@@ -179,15 +204,19 @@ def build_trainer(args):
     if args.load_inception and os.path.exists(args.load_inception):
         inception = load_torch_file(args.load_inception)
 
+    # each rank decodes its rows of every global batch (parallel/mesh.py)
+    shards = {"num_shards": world, "shard_id": rank()}
     train_loader = Places365Loader(
         Places365(args.path_to_places365, "train.txt", config),
         batch_size=args.batch_size, shuffle=True, drop_last=True,
-        num_workers=args.num_workers, compact_feed=args.compact_feed)
+        num_workers=args.num_workers, compact_feed=args.compact_feed,
+        **shards)
     val_loader = Places365Loader(
         Places365(args.path_to_places365, "val.txt", config,
                   max_length=args.fid_images, validation=True),
         batch_size=2 * args.batch_size, shuffle=True, drop_last=False,
-        num_workers=args.num_workers, compact_feed=args.compact_feed)
+        num_workers=args.num_workers, compact_feed=args.compact_feed,
+        **shards)
 
     trainer = Trainer(
         config, train_loader, val_loader,
@@ -225,6 +254,12 @@ def main(argv=None) -> int:
     if args.test:
         print("FID=", trainer.validate())
         trainer.inference()
+    if args.multihost:
+        from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
+            shutdown_distributed,
+        )
+
+        shutdown_distributed()
     return 0
 
 

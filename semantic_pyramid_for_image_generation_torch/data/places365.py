@@ -154,8 +154,10 @@ class Places365Loader:
         shard s decodes only its contiguous slice of every global batch, and
         the shuffle and mask draws are seeded identically on all shards, so
         concatenating the shard outputs reproduces the unsharded loader
-        bit for bit. `use_native_masks=None` takes the native batched mask
-        kernel when the library builds, else the numpy schedule."""
+        bit for bit. A shard's batch also holds `shard_rows`, (start, stop,
+        total) of its rows in the global batch, on the host.
+        `use_native_masks=None` takes the native batched mask kernel when
+        the library builds, else the numpy schedule."""
         if not (0 <= shard_id < num_shards):
             raise ValueError(f"shard_id {shard_id} not in [0, {num_shards})")
         self.num_shards = num_shards
@@ -231,12 +233,14 @@ class Places365Loader:
                     # masks for the global batch (seeded identically on every
                     # shard), then row-sliced, so shard concat == unsharded
                     native_masks = self._native_masks(len(idx), b, n_batches)
+                    shard_rows = None
                     if self.num_shards > 1:
                         rows = np.array_split(
                             np.arange(len(idx)), self.num_shards)[self.shard_id]
-                        idx = idx[rows]
-                        if len(idx) == 0:  # ragged final batch < num_shards
+                        if len(rows) == 0:  # ragged final batch < num_shards
                             continue
+                        shard_rows = np.array([rows[0], rows[-1] + 1, len(idx)])
+                        idx = idx[rows]
                         if native_masks is not None:
                             native_masks = [m[rows] for m in native_masks]
                     rngs = [np.random.default_rng((self.seed, self.epoch, int(i)))
@@ -245,7 +249,10 @@ class Places365Loader:
                         self.dataset.sample, [int(i) for i in idx], rngs,
                         [native_masks is None] * len(idx),
                         [self.compact_feed] * len(idx)))
-                    if not put_or_stop(self._collate(samples, native_masks)):
+                    batch = self._collate(samples, native_masks)
+                    if shard_rows is not None:
+                        batch["shard_rows"] = shard_rows
+                    if not put_or_stop(batch):
                         return
             put_or_stop(None)
 

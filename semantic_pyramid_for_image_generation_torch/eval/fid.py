@@ -13,7 +13,10 @@ Pipeline:
 
 Batches are walked one by one and each is counted whole (rows past a
 batch's `num_valid`, where given, are left out): a later batch larger than
-the first is no special case. The JAX package's `fid_scan` (lax.scan over
+the first is no special case. Over several ranks (parallel/mesh.py) each
+rank walks its rows of the batches, and the count and moments are summed
+over the ranks before the reduction, so every rank gets the FID of the
+whole set. The JAX package's `fid_scan` (lax.scan over
 staged groups of batches) packs dispatches for a TPU host link and has no
 counterpart here.
 """
@@ -33,11 +36,16 @@ from semantic_pyramid_for_image_generation_torch.models.inception import (
 from semantic_pyramid_for_image_generation_torch.ops.resize import (
     resize_bilinear_half_pixel,
 )
+from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
+    is_distributed,
+    sum_over_ranks_,
+)
 from semantic_pyramid_for_image_generation_torch.utils.device import (
     exact_float32,
 )
 
 Moments = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+FEATURES = 2048  # the pooled Mixed_7c activations
 
 
 def _min_max(images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -184,10 +192,25 @@ class FIDEvaluator:
                    *self.moments(generate_fn(batch), n))
             totals = new if totals is None else tuple(
                 a + b for a, b in zip(totals, new))
-        if totals is None:
+        if is_distributed():
+            n_total, totals = self._sum_over_ranks(n_total, totals)
+        if totals is None or n_total == 0:
             raise ValueError("FID over no batches")
         self.last_moments = (n_total, totals)
         return self.reduce_moments(n_total, totals)
+
+    def _sum_over_ranks(self, n_total: int, totals: Optional[Moments]
+                        ) -> Tuple[int, Moments]:
+        """The count and moments summed over the ranks, in one flat bucket;
+        a rank that walked no batch adds zeros."""
+        if totals is None:
+            zeros = torch.zeros(FEATURES, device=self.device)
+            outer = torch.zeros(FEATURES, FEATURES, device=self.device)
+            totals = (zeros, outer, zeros.clone(), outer.clone())
+        count = torch.full((1,), float(n_total), device=self.device)
+        totals = tuple(t.clone() for t in totals)  # inference tensors
+        sum_over_ranks_((count, *totals))
+        return int(count.item()), totals
 
     def reduce_moments(self, n_total: int, totals: Moments,
                        device_statistics: Optional[bool] = None) -> float:

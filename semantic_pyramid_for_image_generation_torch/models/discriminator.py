@@ -8,7 +8,9 @@ spectrally-normalized class embedding projection.
 
 `compat_projection=True` (the default) keeps the reference's broadcast:
 score (B, 1) + x (B, 128) * emb (B, 1, 128) gives (B, B, 128), out[i, j] =
-score[j] + x[j] * emb[i]; the LSGAN losses mean over all of it.
+score[j] + x[j] * emb[i]; the LSGAN losses mean over all of it. Over
+several ranks (parallel/mesh.py) i runs over the global batch and j over
+this rank's rows: (B_global, B, 128).
 `compat_projection=False` gives the canonical (B, 1) score + <x, emb>.
 
 Keys follow the reference layout (`layers.0..11`, `classification`,
@@ -33,6 +35,9 @@ from semantic_pyramid_for_image_generation_torch.models.layers import (
 )
 from semantic_pyramid_for_image_generation_torch.models.vgg16 import (
     compute_dtype,
+)
+from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
+    all_gather_rows,
 )
 
 _ATTENTION_AFTER = 2  # SelfAttention sits after the 256-channel block 2
@@ -63,12 +68,18 @@ class Discriminator(nn.Module):
     def forward(self, images: torch.Tensor,
                 class_onehot: torch.Tensor) -> torch.Tensor:
         """images (B, 3, 256, 256), class_onehot (B, num_classes) -> (B, B, 128)
-        with compat_projection, else (B, 1); in the compute dtype."""
+        ((B_global, B, 128) over several ranks) with compat_projection, else
+        (B, 1); in the compute dtype."""
         dtype = self.dtype
         x = images.to(dtype).contiguous(memory_format=torch.channels_last)
         for layer in self.layers:
             x = layer(x)
-        emb = self.embedding(class_onehot.argmax(dim=-1)).to(dtype)
+        labels = class_onehot.argmax(dim=-1)
+        if self.config.compat_projection:
+            # emb over the global batch's i: every rank's labels (the
+            # embedding is replicated), so a rank returns (B_global, B, 128)
+            labels = all_gather_rows(labels)
+        emb = self.embedding(labels).to(dtype)
         score = self.classification(x)
         if self.config.compat_projection:
             return score + x * emb[:, None, :]

@@ -43,6 +43,10 @@ from semantic_pyramid_for_image_generation_torch.ops.spectral_norm import (
     spectral_norm_weight,
     weight_matrix,
 )
+from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
+    all_reduce_sum,
+    world_size,
+)
 
 LEAKY_SLOPE = 0.2
 
@@ -185,23 +189,44 @@ def _channel(t: torch.Tensor) -> torch.Tensor:
     return t[..., None, None]
 
 
+def _global_moments(x32: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(E[x], E[x^2], n / (n - 1)) over (B, H, W) of the global batch: the
+    per-channel sums and the count, summed over the ranks in one
+    differentiable all-reduce."""
+    c = x32.shape[1]
+    count = torch.full((1,), x32.numel() // c, dtype=torch.float32,
+                       device=x32.device)
+    sums = all_reduce_sum(torch.cat([x32.sum(dim=(0, 2, 3)),
+                                     (x32 * x32).sum(dim=(0, 2, 3)), count]))
+    n = sums[2 * c].detach()
+    return sums[:c] / n, sums[c:2 * c] / n, n / (n - 1.0)
+
+
 def _moments(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean, var) to normalize x with. Eval: bn's running statistics.
-    Training: batch statistics over (B, H, W) in float32, in JAX's formula
+    Training: batch statistics over (B, H, W) of the global batch (every
+    rank's rows, as GSPMD computes them in JAX) in float32, in JAX's formula
     var = E[x^2] - E[x]^2, and one momentum step of bn's running mean and
-    unbiased running var (n = B*H*W), in JAX's order of operations."""
+    unbiased running var (n = B*H*W), in JAX's order of operations. The
+    running statistics come out the same on every rank."""
     if not training:
         return bn.running_mean, bn.running_var
     x32 = x.float()
-    mean = x32.mean(dim=(0, 2, 3))
-    var = (x32 * x32).mean(dim=(0, 2, 3)) - mean * mean
-    n = x.shape[0] * x.shape[2] * x.shape[3]
+    if world_size() == 1:
+        mean = x32.mean(dim=(0, 2, 3))
+        ex2 = (x32 * x32).mean(dim=(0, 2, 3))
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        unbiased = n / max(n - 1, 1)
+    else:
+        mean, ex2, unbiased = _global_moments(x32)
+    var = ex2 - mean * mean
     m = bn.momentum
     with torch.no_grad():
         bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)
         bn.running_var.copy_((1.0 - m) * bn.running_var
-                             + m * (var * (n / max(n - 1, 1))))
+                             + m * (var * unbiased))
     return mean, var
 
 

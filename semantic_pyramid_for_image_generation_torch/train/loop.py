@@ -14,6 +14,15 @@ one 49-row generate. On the card:
   * validation and the grid run the generator in eval mode (no u/v or
     batch-norm statistics advance) and restore its mode after.
 Checkpoints are the reference `.pt` layout (train/checkpoint.py).
+
+Over several ranks (parallel/mesh.py; the JAX package's `is_lead` and
+process-sharded data): every rank runs the same loop on its rows of each
+batch and holds the same state (broadcast from rank 0 at construction);
+`samples_seen` counts the global batch; only rank 0 creates the run
+directories and writes metrics, grids and checkpoints, and every rank
+waits for each checkpoint to be written. Validation walks each rank's rows
+and sums the FID moments over the ranks; every rank runs the grid's
+generate, so the eval generator advances alike on every rank.
 """
 
 from __future__ import annotations
@@ -37,6 +46,14 @@ from semantic_pyramid_for_image_generation_torch.eval.grid import (
     save_inference_grid,
     sweep_masks,
     sweep_stack,
+)
+from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
+    barrier,
+    broadcast_object,
+    broadcast_state,
+    global_rows,
+    rank,
+    world_size,
 )
 from semantic_pyramid_for_image_generation_torch.train.checkpoint import (
     latest_checkpoint,
@@ -103,6 +120,8 @@ class Trainer:
         self.write_grids = write_grids
         self.state = state if state is not None else init_train_state(
             config, self.device, lr=lr, seed=seed)
+        broadcast_state(self.state)
+        self.is_lead = rank() == 0
         self.step_fn = make_train_step(w_rec=w_rec, w_div=w_div)
         self.fid_evaluator = FIDEvaluator(
             inception_state_dict, self.device, allow_random=allow_random_fid,
@@ -111,10 +130,11 @@ class Trainer:
         self.rng = torch.Generator(self.device).manual_seed(seed + 1)
         self._inference_batch: Optional[Dict[str, Any]] = None
         self.last_grid: Optional[np.ndarray] = None
-        self.paths = make_run_dirs(save_data_path)
+        self.paths = broadcast_object(
+            make_run_dirs(save_data_path) if self.is_lead else None)
         self.logger = Logger(
             tensorboard_dir=os.path.join(self.paths["metrics"], "tensorboard")
-            if tensorboard else None)
+            if tensorboard and self.is_lead else None)
         self.samples_seen = 0
         self.epochs_trained = 0  # persistent across train() calls
         self.logger.hyperparameter.update({
@@ -181,7 +201,7 @@ class Trainer:
         for _ in range(epochs):
             epoch = self.epochs_trained
             for batch in self.training_dataset:
-                batch_size = batch["images"].shape[0]
+                batch_size = batch["images"].shape[0] * world_size()
                 metrics = self.train_step(batch)
                 self.samples_seen += batch_size
                 pending.append((metrics, self.samples_seen, epoch))
@@ -207,18 +227,28 @@ class Trainer:
                     self.inference()
                     self.logger.log("fid", fid)
                     self.logger.log("iterations_fid", self.samples_seen)
-                    self.logger.save_metrics(self.paths["metrics"])
+                    self._save_metrics()
             self._flush_metrics(pending)
             if epoch % save_model_after_n_epochs == 0:
                 self.save_checkpoint(epoch)
             self.inference()
-            self.logger.save_metrics(self.paths["metrics"])
+            self._save_metrics()
             self.epochs_trained += 1
         if bar is not None:
             bar.close()
 
-    def save_checkpoint(self, step: int) -> str:
-        return save_checkpoint(self.paths["models"], self.state, step=step)
+    def _save_metrics(self) -> None:
+        if self.is_lead:
+            self.logger.save_metrics(self.paths["metrics"])
+
+    def save_checkpoint(self, step: int) -> Optional[str]:
+        """Rank 0 writes `checkpoint_<step>.pt` and returns its path (None on
+        the other ranks); every rank returns once it is written."""
+        path = None
+        if self.is_lead:
+            path = save_checkpoint(self.paths["models"], self.state, step=step)
+        barrier()
+        return path
 
     def import_adam_moments(self, checkpoint: Mapping[str, Any]) -> None:
         """Adopt the Adam moments of a loaded reference checkpoint
@@ -263,24 +293,44 @@ class Trainer:
         finally:
             generator.train(training)
 
+    def _latents(self, rng: torch.Generator, n: int,
+                 rows: Optional[Any] = None) -> torch.Tensor:
+        """This rank's rows of the latents drawn from `rng` for its global
+        batch (`global_rows`): n ranks draw what one rank draws."""
+        start, stop, total = global_rows(n, rows)
+        return torch.randn((total, self.config.latent_dim), generator=rng,
+                           device=self.device)[start:stop]
+
     def generate(self, batch: Mapping[str, Any],
                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Eval-mode fakes (B, H, W, 3) for a device batch; the latents are
         drawn from the Trainer's eval generator unless given."""
         if noise is None:
-            noise = torch.randn(
-                (batch["images"].shape[0], self.config.latent_dim),
-                generator=self.rng, device=self.device)
+            noise = self._latents(self.rng, batch["images"].shape[0])
         with self._eval_mode():
             return make_generate_fn(self.state.generator, self.state.vgg)(
                 batch["images"], batch["masks"], batch["labels"], noise)
 
     def validate(self) -> float:
-        """FID of fresh fakes against the validation set, batch by batch."""
+        """FID of fresh fakes against the validation set, batch by batch.
+        One draw from the eval generator seeds this validation's latents (as
+        the JAX package splits its key once per validation), so every rank
+        draws the same latents whatever rows it holds, and a rank that gets
+        no rows of a ragged last batch stays in step."""
         assert self.validation_dataset is not None
+        seed = torch.randint(2 ** 62, (1,), generator=self.rng,
+                             device=self.device)
+        rng = torch.Generator(self.device).manual_seed(int(seed))
+
+        def batches():
+            for b in self.validation_dataset:
+                batch = batch_to_device(b, self.device)
+                batch["noise"] = self._latents(
+                    rng, batch["images"].shape[0], b.get("shard_rows"))
+                yield batch
+
         return self.fid_evaluator.fid(
-            (batch_to_device(b, self.device) for b in self.validation_dataset),
-            self.generate)
+            batches(), lambda batch: self.generate(batch, batch["noise"]))
 
     def _draw_inference_samples(self, num_images: int):
         """Seeded random draw of `num_images` distinct validation samples,
@@ -322,7 +372,8 @@ class Trainer:
         of levels * num_images rows (images and labels tiled level-major),
         with the latents drawn level by level, as seven generates of
         num_images rows would draw them. The grid stays in `last_grid`; the
-        PNG path is returned (None with write_grids=False)."""
+        PNG path is returned (None with write_grids=False, and on every rank
+        but rank 0, which alone writes it)."""
         if self.validation_dataset is None:
             return None
         images, labels = self._draw_inference_samples(num_images)
@@ -341,7 +392,7 @@ class Trainer:
             for _ in range(GRID_LEVELS)])
         fakes = self.generate(batch, noise).float().cpu().numpy()
         self.last_grid = sweep_stack(fakes, num_images)
-        if not self.write_grids:
+        if not (self.write_grids and self.is_lead):
             return None
         path = os.path.join(self.paths["plots"],
                             f"predictions_{self.samples_seen}.png")

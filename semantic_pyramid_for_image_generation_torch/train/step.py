@@ -22,6 +22,11 @@ from semantic_pyramid_for_image_generation_torch.models.layers import (
     set_spectral_update_,
 )
 from semantic_pyramid_for_image_generation_torch.models.vgg16 import VGG16
+from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
+    all_reduce_gradients,
+    global_rows,
+    sum_metrics,
+)
 from semantic_pyramid_for_image_generation_torch.train.losses import (
     diversity_loss,
     lsgan_discriminator_loss,
@@ -60,10 +65,12 @@ def _float_masks(masks: Sequence[torch.Tensor]) -> list:
 
 def batch_to_device(batch: Mapping[str, Any], device: torch.device) -> Batch:
     """A numpy batch (data/synthetic.py, or the same keys from a loader) as
-    tensors on `device`; the masks stay a tuple."""
+    tensors on `device`; the masks stay a tuple. A sharded loader's
+    host-side `shard_rows` stays behind."""
     def put(a):
         return torch.as_tensor(np.asarray(a)).to(device)
-    out = {k: put(v) for k, v in batch.items() if k != "masks"}
+    out = {k: put(v) for k, v in batch.items()
+           if k not in ("masks", "shard_rows")}
     out["masks"] = tuple(put(m) for m in batch["masks"])
     return out
 
@@ -94,7 +101,15 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
 
     spectral_update: the test switch of the JAX step; False freezes u/v
     (every sigma reuses the stored vectors). float32 runs without TF32 in
-    the forward and the backward (`exact_float32`)."""
+    the forward and the backward (`exact_float32`).
+
+    Over several ranks (parallel/mesh.py) `batch` holds this rank's rows of
+    the global batch, every rank the same number; the step computes what
+    one rank computes on the concatenated batch. The latents are drawn for
+    the global batch from `rng` (seeded alike on every rank) and sliced to
+    this rank's rows; pinned latents are this rank's rows. Each gradient is
+    summed over the ranks before its Adam step, and the metrics are the
+    global losses on every rank."""
 
     def train_step(state: TrainState, batch: Batch,
                    rng: Optional[torch.Generator] = None):
@@ -113,8 +128,9 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
         def noise(key: str) -> torch.Tensor:
             if batch.get(key) is not None:
                 return batch[key].float()
-            return torch.randn((b, latent_dim), generator=rng,
-                               device=images.device)
+            start, stop, total = global_rows(b)
+            return torch.randn((total, latent_dim), generator=rng,
+                               device=images.device)[start:stop]
 
         with exact_float32():
             # ---- the frozen-VGG pyramid of the real batch
@@ -128,6 +144,7 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
                 discriminator(images, labels), discriminator(fake_d, labels))
             state.d_optimizer.zero_grad(set_to_none=True)
             (loss_d_real + loss_d_fake).backward()
+            all_reduce_gradients(discriminator)
             state.d_optimizer.step()
             # ---- generator phase (sees the updated discriminator)
             noise_g = noise("noise_g")
@@ -139,6 +156,7 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
             state.g_optimizer.zero_grad(set_to_none=True)
             (loss_g + loss_div + loss_rec).backward(
                 inputs=list(generator.parameters()))
+            all_reduce_gradients(generator)
             state.g_optimizer.step()
         state.step += 1
         metrics = {
@@ -149,7 +167,7 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
             "loss_generator_semantic_reconstruction": loss_rec,
             "loss_generator_diversity": loss_div,
         }
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, sum_metrics({k: v.detach() for k, v in metrics.items()})
 
     return train_step
 

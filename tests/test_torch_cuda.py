@@ -606,3 +606,87 @@ def test_dropout_masks_from_a_seeded_generator_repeat(cuda):
     assert a.device.type == "cuda" and a.dtype == torch.bool
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert 0.49 < float(a.float().mean()) < 0.51
+
+
+# ------------------------------------------- data parallel on one card --
+
+PARALLEL_LIMITS = {"metrics": 1e-4, "generator_off": 1e-3,
+                   "discriminator_off": 1e-3, "generator_grads": 1e-3,
+                   "discriminator_grads": 1e-3}
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_match_one_rank(cuda, tmp_path):
+    """Two ranks over gloo on cuda:0 (tests/torch_parallel_rank.py), tiny
+    widths, fp32, global batch 4 with pinned latents, two steps: the ranks
+    end bitwise equal (parameters, u/v, running statistics, Adam states,
+    gradients, metrics), and are held against one process stepping the
+    concatenated batch on the card: every metric within 1e-4 relative, at
+    most 0.1% of G's and of D's elements further than 1% of an Adam step,
+    and the first step's gradients within 1e-3 relative L2 per network
+    (tests/test_torch_parallel.py holds the same on the CPU against JAX)."""
+    import dataclasses
+    import json
+
+    import numpy as np
+
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from semantic_pyramid_for_image_generation_torch.models.layers import (
+        advance_spectral_norm_,
+    )
+    from semantic_pyramid_for_image_generation_torch.ops.cuda import build
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        init_train_state,
+    )
+    from torch_parallel_rank import (
+        WORKER,
+        build_state,
+        join,
+        readings_against,
+        snapshot,
+        start,
+        step_run,
+        tree_equal,
+    )
+
+    config, lr, cpu = PyramidGANConfig().tiny(), 1e-5, torch.device("cpu")
+    state = init_train_state(config, cpu, lr=lr, seed=0)
+    advance_spectral_norm_(state.generator, 10)
+    advance_spectral_norm_(state.discriminator, 10)
+    rng = np.random.default_rng(4)
+    batches = []
+    for _ in range(2):
+        batch = synthetic_batch(config, 4, rng)
+        for key in ("noise_d", "noise_g"):
+            batch[key] = rng.standard_normal(
+                (4, config.latent_dim)).astype(np.float32)
+        batches.append(batch)
+    inputs = {"config": dataclasses.asdict(config), "lr": lr,
+              "batches": batches}
+    for net in ("generator", "discriminator", "vgg"):
+        inputs[net] = getattr(state, net).state_dict()
+    torch.save(inputs, tmp_path / "inputs.pt")
+    (tmp_path / "spec.json").write_text(json.dumps(
+        {"device": cuda.type, "inputs": str(tmp_path / "inputs.pt"),
+         "out": str(tmp_path), "runs": ["sound"]}))
+    build.library()  # built once, before the ranks load it
+    procs = start(2, [WORKER, str(tmp_path / "spec.json")])
+    one = build_state(inputs, cuda)
+    ref = step_run(one, batches, cuda, 1, 0)
+    ref.update(snapshot(one))
+    join(procs, timeout=240)
+    ranks = [torch.load(tmp_path / f"sound_rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    for key in ("metrics", "grads", "last_grads", "generator",
+                "discriminator", "generator_optimizer",
+                "discriminator_optimizer"):
+        assert tree_equal(ranks[0][key], ranks[1][key]), key
+    readings = readings_against(ranks[0], ref, lr)
+    print(f"two gloo ranks on the card against one process: {readings}, "
+          f"limits {PARALLEL_LIMITS}")
+    assert all(readings[k] <= v for k, v in PARALLEL_LIMITS.items()), readings

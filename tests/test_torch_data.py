@@ -150,6 +150,27 @@ def test_shards_concat_to_the_jax_global_batch(dataset_root, use_native_masks):
         Places365Loader(ds, batch_size=4, num_shards=2, shard_id=2)
 
 
+def test_shard_rows_place_each_shard_in_its_global_batch(dataset_root):
+    """A shard's batch says where its rows sit in the global batch (the
+    Trainer draws a validation batch's latents for the global batch); an
+    unsharded batch has no `shard_rows`."""
+    ds = Places365(dataset_root, "train.txt", CFG)
+    kw = dict(batch_size=5, num_workers=2, seed=7, drop_last=False)
+    assert all("shard_rows" not in b for b in Places365Loader(ds, **kw))
+    for shards in (2, 3):
+        parts = [list(Places365Loader(ds, num_shards=shards, shard_id=s, **kw))
+                 for s in range(shards)]
+        totals = [min(5, len(ds) - 5 * i) for i in range(-(-len(ds) // 5))]
+        for s, part in enumerate(parts):
+            want = [np.array_split(np.arange(n), shards)[s] for n in totals]
+            want = [(int(w[0]), int(w[-1]) + 1, n)
+                    for w, n in zip(want, totals) if len(w)]
+            got = [tuple(int(v) for v in b["shard_rows"]) for b in part]
+            assert got == want
+            assert [b["images"].shape[0] for b in part] == \
+                [stop - start for start, stop, _ in want]
+
+
 def test_abandoned_iterator_stops_its_producer(dataset_root):
     import threading
     import time

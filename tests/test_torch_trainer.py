@@ -15,7 +15,8 @@
     looped 7-row generates with the same latents (1e-5 absolute in fp32:
     the same per-sample arithmetic at another batch size).
   * CLI: the parser's dests and defaults are the JAX package's but for
-    `--device`; the flags of modes the port lacks raise; `main` trains,
+    `--device`; the flags of modes the port lacks raise (`--multihost` runs:
+    tests/test_torch_cli.py); `main` trains,
     validates, writes metrics, `checkpoint_000.pt` and a grid PNG on a mini
     Places365 tree, and resumes from the checkpoint.
 """
@@ -225,9 +226,12 @@ def test_parser_matches_jax_but_device():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--fsdp", "2"], "item 13"), (["--multihost"], "item 13"),
+    # --fsdp names item 16 and item 13, which brought the data axis only;
+    # --multihost trains (tests/test_torch_cli.py) but refuses --fsdp before
+    # it joins a process group
+    (["--fsdp", "2"], "item 13"), (["--multihost", "--fsdp", "2"], "item 13"),
     (["--fused_d"], "item 6"), (["--remat_vgg"], "item 6"),
-    (["--remat_blocks"], "item 6")])
+    (["--remat_blocks"], "item 6"), (["--fsdp", "4"], "item 16")])
 def test_flags_of_missing_modes_raise(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(flags + ["--device", "cpu"])
