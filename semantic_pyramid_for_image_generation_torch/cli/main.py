@@ -17,7 +17,9 @@ except:
     torchrun launches them (data parallelism, parallel/mesh.py): nccl on
     `cuda` (cuda:LOCAL_RANK), gloo with `--device cpu`. The batch size is
     the global batch, rounded to a multiple of the world size, and each
-    rank loads its rows of it:
+    rank loads its rows of it. Every rank reads the weight files and
+    checkpoints from its own disk, so all ranks must see the same files (a
+    shared file system); ranks that end up holding different states raise:
 
         torchrun --nproc_per_node N -m \
             semantic_pyramid_for_image_generation_torch.cli.main \
@@ -164,6 +166,7 @@ def build_trainer(args):
         Places365Loader,
     )
     from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
+        check_replicated,
         init_distributed,
         rank,
         world_size,
@@ -196,7 +199,9 @@ def build_trainer(args):
         args.batch_size = rounded
     config = config_from_args(args)
     state = init_train_state(config, device, lr=args.lr, seed=args.seed)
-    if args.load_pretrained_vgg16 and os.path.exists(args.load_pretrained_vgg16):
+    found_vgg = bool(args.load_pretrained_vgg16
+                     and os.path.exists(args.load_pretrained_vgg16))
+    if found_vgg:
         state.vgg.load_state_dict(vgg16_state_dict_from_torch(
             load_torch_file(args.load_pretrained_vgg16)), strict=True)
         print(f"Loaded pretrained VGG16 from {args.load_pretrained_vgg16}")
@@ -234,6 +239,8 @@ def build_trainer(args):
               f"(step {trainer.state.step})")
     if args.auto_resume:
         trainer.auto_resume(args.auto_resume)
+    check_replicated(trainer.state, vgg_file_found=found_vgg,
+                     inception_file_found=inception is not None)
 
     print("Number of generator parameters",
           param_count(trainer.state.generator))

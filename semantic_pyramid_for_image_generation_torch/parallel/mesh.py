@@ -15,7 +15,11 @@ written out:
     `broadcast_state` from rank 0, once, at construction (as DDP does);
     `sum_over_ranks_` of the step metrics and the FID moments. These run
     whenever a process group exists, a one-rank group included, so a
-    one-rank run takes the collective path that N ranks take.
+    one-rank run takes the collective path that N ranks take;
+  * `check_replicated`, once the ranks have loaded their files: every rank
+    reads the VGG, a checkpoint and the Inception from its own disk, so the
+    ranks must see the same files (a shared file system), and a rank that
+    holds another state raises instead of training on it.
 
 The convention: a rank's share of each loss is its part of the global mean
 (its rows' sum over the global count), so the ranks' losses sum to the
@@ -35,6 +39,7 @@ group a timeout, so a missing collective fails instead of hanging.
 from __future__ import annotations
 
 import datetime
+import hashlib
 import os
 from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
 
@@ -224,9 +229,11 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 class _AllGatherRows(torch.autograd.Function):
-    """Every rank's rows, concatenated in rank order. The backward sums the
-    ranks' gradients of the whole with one all-reduce (which every backend
-    runs on CUDA tensors) and keeps this rank's rows."""
+    """Every rank's rows, concatenated in rank order. It assumes every rank
+    takes the same 1/world share of the same loss of the whole (the
+    diversity loss, train/losses.py), so each rank's gradient of the whole
+    is 1/world of the true one: the backward returns this rank's rows of it
+    times the world size, with no collective."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor) -> torch.Tensor:
@@ -236,13 +243,12 @@ class _AllGatherRows(torch.autograd.Function):
         dist.all_gather(parts, x)
         collective_bytes["all_gather"] += world * x.numel() * x.element_size()
         ctx.rows = shard_slice(world * x.shape[0], world, rank())
+        ctx.world = world
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
-        grad = grad.contiguous().clone()
-        _all_reduce(grad)
-        return grad[ctx.rows]
+        return grad[ctx.rows] * ctx.world
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
@@ -252,5 +258,61 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
 
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     """Every rank's `x` (the same shape on each), concatenated along dim 0
-    in rank order, differentiable; `x` at world size 1."""
+    in rank order; `x` at world size 1. Differentiable for a loss that every
+    rank computes alike and takes 1/world of (`_AllGatherRows`)."""
     return x if world_size() == 1 else _AllGatherRows.apply(x)
+
+
+# ------------------------------------------------------------ replication --
+
+
+def state_digest(state, vgg: bool = False) -> str:
+    """sha256 over G's and D's state dicts (parameters, u/v, running
+    statistics), both Adam states (moments, step counts) and the step; with
+    `vgg`, the VGG's state dict too."""
+    digest = hashlib.sha256()
+
+    def feed(tree) -> None:
+        if isinstance(tree, torch.Tensor):
+            t = tree.detach().reshape(-1).contiguous().cpu()
+            digest.update(str(t.dtype).encode())
+            digest.update(t.view(torch.uint8).numpy().tobytes())
+        elif isinstance(tree, dict):
+            for k in tree:
+                digest.update(str(k).encode())
+                feed(tree[k])
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                feed(v)
+        else:
+            digest.update(repr(tree).encode())
+
+    for net in ("generator", "discriminator"):
+        feed(getattr(state, net).state_dict())
+        feed(getattr(state, f"{net[0]}_optimizer").state_dict())
+    feed(int(state.step))
+    if vgg:
+        feed(state.vgg.state_dict())
+    return digest.hexdigest()
+
+
+def check_replicated(state, **facts: Any) -> None:
+    """Raise on every rank unless all ranks hold the same G, D, VGG, Adam
+    states and step, and report the same `facts` (which weight files each
+    found). Every rank reads its files from its own disk: the ranks of one
+    run must see the same files."""
+    if not is_distributed():
+        return
+    mine = {"state": state_digest(state, vgg=True), **facts}
+    every = [None] * world_size()
+    dist.all_gather_object(every, mine)
+    differ = [r for r, theirs in enumerate(every) if theirs != every[0]]
+    if differ:
+        shown = {r: {k: (v[:12] if k == "state" else v)
+                     for k, v in every[r].items()} for r in [0, *differ]}
+        raise RuntimeError(
+            f"ranks {differ} hold another state than rank 0 after loading "
+            f"their files: {shown}; every rank reads --load_pretrained_vgg16, "
+            "--load_checkpoint, --auto_resume and --load_inception from its "
+            "own disk, so all ranks must see the same files (a shared file "
+            "system)")

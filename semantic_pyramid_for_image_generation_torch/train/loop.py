@@ -20,9 +20,10 @@ process-sharded data): every rank runs the same loop on its rows of each
 batch and holds the same state (broadcast from rank 0 at construction);
 `samples_seen` counts the global batch; only rank 0 creates the run
 directories and writes metrics, grids and checkpoints, and every rank
-waits for each checkpoint to be written. Validation walks each rank's rows
-and sums the FID moments over the ranks; every rank runs the grid's
-generate, so the eval generator advances alike on every rank.
+waits for each checkpoint to be written; `auto_resume` restores on every
+rank the file rank 0 picks. Validation walks each rank's rows and sums the
+FID moments over the ranks; every rank runs the grid's generate, so the
+eval generator advances alike on every rank.
 """
 
 from __future__ import annotations
@@ -261,8 +262,10 @@ class Trainer:
 
     def auto_resume(self, models_dir: Optional[str] = None) -> bool:
         """Restore the newest checkpoint under `models_dir` (default: this
-        run's models dir) if there is one."""
-        path = latest_checkpoint(models_dir or self.paths["models"])
+        run's models dir) if there is one. Over several ranks, rank 0 picks
+        the file and every rank restores it."""
+        path = broadcast_object(latest_checkpoint(
+            models_dir or self.paths["models"]) if self.is_lead else None)
         if path is None:
             return False
         restore_checkpoint(path, self.state)

@@ -64,8 +64,8 @@ def diversity_loss(images_fake: torch.Tensor,
     global batch; pushes distinct noises to distinct images. Over several
     ranks the halves pair rows of different ranks: every rank gathers the
     fakes (with their gradient) and the latents, computes the ratio, and
-    takes 1/world of it, so the ranks' shares sum to the ratio and their
-    gradients to its gradient."""
+    takes 1/world of it, so the ranks' shares sum to the ratio; the
+    gather's backward hands each rank its rows of the ratio's gradient."""
     images_fake = all_gather_rows(images_fake)
     latents = all_gather_rows(latents)
     b = images_fake.shape[0]

@@ -9,6 +9,10 @@ Places365 tree.
     ranks, and both print the same FID.
   * The batch size rounds to a multiple of the world size.
 
+  * Ranks that read different files raise: each rank runs in its own
+    directory, and a relative `--load_pretrained_vgg16` or `--auto_resume`
+    names a file that only rank 0's directory holds.
+
 `--fsdp` > 1 still raises, before any process group is joined
 (tests/test_torch_trainer.py::test_flags_of_missing_modes_raise).
 """
@@ -19,6 +23,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from torch_parallel_rank import join, start
@@ -76,3 +81,40 @@ def test_multihost_trains_on_two_ranks_and_resumes(places_root, tmp_path):
         assert f"auto-resumed from {models}/checkpoint_000.pt (step 2)" in out
     fids = [re.search(r"FID= (\S+)", out).group(1) for out in outs]
     assert fids[0] == fids[1] and np.isfinite(float(fids[0]))
+
+
+@pytest.mark.parametrize("what", ["vgg", "auto_resume"])
+def test_multihost_ranks_that_read_different_files_raise(places_root,
+                                                         tmp_path, what):
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.checkpoint import (
+        save_checkpoint,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        init_train_state,
+    )
+
+    own = [tmp_path / "rank0", tmp_path / "rank1"]
+    for d in own:
+        d.mkdir()
+    state = init_train_state(
+        PyramidGANConfig(channels_factor=8, vgg_width_factor=8),
+        torch.device("cpu"), lr=1e-4, seed=1)
+    if what == "vgg":
+        torch.save(state.vgg.state_dict(), own[0] / "vgg.pt")
+        flags = ["--load_pretrained_vgg16", "vgg.pt"]
+        message = "ranks [1] hold another state than rank 0"
+    else:
+        save_checkpoint(str(own[0] / "models"), state, step=0)
+        flags = ["--load_pretrained_vgg16", "", "--auto_resume", "models"]
+        message = "No such file or directory"
+    procs = start(2, CLI + [
+        "--multihost", "--device", "cpu", "--channel_factor", "8",
+        "--vgg_width_factor", "8", "--path_to_places365", places_root,
+        "--num_workers", "1", "--batch_size", "2", "--allow_random_fid",
+        "--save_data_path", str(tmp_path / "sd")] + flags, cwds=own)
+    with pytest.raises(AssertionError, match="exited") as raised:
+        join(procs, timeout=240)
+    assert message in str(raised.value)

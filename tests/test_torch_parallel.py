@@ -33,6 +33,8 @@ converters) and the same global batches with pinned `noise_d` / `noise_g`:
   * The FID of a Trainer over 2 ranks (validation batches of 4 and 3 rows,
     split 2/2 and 2/1) against one rank: the same count, moments within
     1e-5 relative, the FID within 1e-4 relative.
+  * `mesh.check_replicated` passes on equal states and raises on both ranks
+    when one parameter element of rank 1's G is one ulp off.
 """
 
 import dataclasses
@@ -114,7 +116,8 @@ def runs(tmp_path_factory):
         torch.save(inputs[world], out / "inputs.pt")
         spec = {"device": "cpu", "inputs": str(out / "inputs.pt"),
                 "out": str(out),
-                "runs": ["sound", *FAULTS] if world == 2 else ["sound"]}
+                "runs": ["sound", *FAULTS] if world == 2 else ["sound"],
+                "replicated": world == 2}
         (out / "spec.json").write_text(json.dumps(spec))
         procs[world] = start(world, [WORKER, str(out / "spec.json")])
     refs = {}
@@ -140,6 +143,9 @@ def runs(tmp_path_factory):
             for run in (["sound", *FAULTS] if world == 2 else ["sound"])}
     fid_ranks = [torch.load(work / "world2" / f"fid_rank{r}.pt",
                             weights_only=False) for r in range(2)]
+    results[2]["replicated"] = [
+        torch.load(work / "world2" / f"replicated_rank{r}.pt")
+        for r in range(2)]
     return results, refs, (fid_one, fid_ranks)
 
 
@@ -230,6 +236,15 @@ def test_fid_over_two_ranks_matches_one_rank(runs):
         torch.testing.assert_close(got, want, rtol=1e-5,
                                    atol=1e-5 * float(want.abs().max()))
     np.testing.assert_allclose(ranks[0]["fid"], one["fid"], rtol=1e-4)
+
+
+def test_check_replicated_raises_on_every_rank_when_states_differ(runs):
+    results, _, _ = runs
+    for outcome in results[2]["replicated"]:
+        assert outcome["equal"] == ""
+        assert outcome["rank1_differs"].startswith(
+            "ranks [1] hold another state than rank 0")
+        assert "shared file system" in outcome["rank1_differs"]
 
 
 def test_shard_slice_is_array_split():

@@ -13,8 +13,13 @@ run's metrics per step, the first and the last step's summed gradients, and
 the final G and D state dicts and Adam states go to
 `<out>/<run>_rank<r>.pt`. With `fid` in the
 inputs, the rank also validates a Trainer on its rows of the validation
-batches and writes `<out>/fid_rank<r>.pt`.
+batches and writes `<out>/fid_rank<r>.pt`. With `replicated` in the spec,
+the ranks run `mesh.check_replicated` on equal states, then with rank 1's
+G changed by one ulp, and write what each raised to
+`<out>/replicated_rank<r>.pt`.
 
+The planted faults, the readings and the row helpers here are also the
+ones chip_smoke.py's data-parallel phase holds the ranks on the card with.
 Imports torch, numpy and the port only: it runs on a host without JAX.
 """
 
@@ -44,9 +49,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def start(world: int, argv: list) -> list:
+def start(world: int, argv: list, cwds: list | None = None) -> list:
     """Start `world` processes of `python *argv` (this script: [WORKER,
-    spec path]), each told its rank as torchrun tells it."""
+    spec path]), each told its rank as torchrun tells it; rank r runs in
+    `cwds[r]` (default: the repository root)."""
     port = free_port()
     procs = []
     for r in range(world):
@@ -56,15 +62,16 @@ def start(world: int, argv: list) -> list:
                    PYTHONPATH=str(REPO) + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
         procs.append(subprocess.Popen(
-            [sys.executable, *argv], env=env, cwd=str(REPO),
+            [sys.executable, *argv], env=env,
+            cwd=str(cwds[r]) if cwds else str(REPO),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return procs
 
 
 def join(procs: list, timeout: float = 240.0) -> list:
     """Wait for every rank until `timeout` seconds in all; on expiry kill
-    them all and raise. Raises if a rank exits non-zero. Returns the ranks'
-    outputs."""
+    them all and raise. Raises with the output of every rank that exits
+    non-zero. Returns the ranks' outputs."""
     deadline = time.monotonic() + timeout
     outs = []
     try:
@@ -76,22 +83,28 @@ def join(procs: list, timeout: float = 240.0) -> list:
             p.kill()
             p.communicate()
         raise AssertionError(f"ranks did not finish within {timeout} s")
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise AssertionError(f"rank {r} exited {p.returncode}:\n{out[-4000:]}")
+    failed = [f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
+              for r, (p, out) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    if failed:
+        raise AssertionError("\n".join(failed))
     return outs
 
 
+def rows_of(batch: dict, rows) -> dict:
+    """Rows (a slice or an index array) of a numpy batch (masks a tuple)."""
+    out = {k: v[rows] for k, v in batch.items() if k != "masks"}
+    out["masks"] = tuple(m[rows] for m in batch["masks"])
+    return out
+
+
 def local_batch(batch: dict, world: int, rank: int) -> dict:
-    """Rank `rank`'s rows of a numpy global batch (masks a tuple)."""
+    """Rank `rank`'s rows of a numpy global batch."""
     from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
         shard_slice,
     )
 
-    rows = shard_slice(batch["images"].shape[0], world, rank)
-    out = {k: v[rows] for k, v in batch.items() if k != "masks"}
-    out["masks"] = tuple(m[rows] for m in batch["masks"])
-    return out
+    return rows_of(batch, shard_slice(batch["images"].shape[0], world, rank))
 
 
 @contextlib.contextmanager
@@ -130,20 +143,20 @@ def planted(fault: str):
         setattr(module, name, original)
 
 
-def _cpu(tree):
+def to_cpu(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().clone()
     if isinstance(tree, dict):
-        return {k: _cpu(v) for k, v in tree.items()}
+        return {k: to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_cpu(v) for v in tree)
+        return type(tree)(to_cpu(v) for v in tree)
     return tree
 
 
 def gradients(state) -> dict:
     """The gradients G's and D's parameters hold (summed over the ranks
     after a step), on the CPU."""
-    return {net: {k: _cpu(p.grad) for k, p in
+    return {net: {k: to_cpu(p.grad) for k, p in
                   getattr(state, net).named_parameters() if p.grad is not None}
             for net in ("generator", "discriminator")}
 
@@ -153,8 +166,8 @@ def snapshot(state) -> dict:
     states, on the CPU."""
     out = {}
     for net in ("generator", "discriminator"):
-        out[net] = _cpu(getattr(state, net).state_dict())
-        out[f"{net}_optimizer"] = _cpu(
+        out[net] = to_cpu(getattr(state, net).state_dict())
+        out[f"{net}_optimizer"] = to_cpu(
             getattr(state, f"{net[0]}_optimizer").state_dict())
     return out
 
@@ -170,12 +183,21 @@ def tree_equal(a, b) -> bool:
     return a == b
 
 
+EMBEDDING = "embedding.weight_orig"  # the projection head's class embedding
+
+
 def readings_against(got: dict, ref: dict, lr: float) -> dict:
     """A run's readings against the one-process run on the concatenated
     batch (`step_run` plus `snapshot`): the worst relative metric error;
     per network, the share of parameter elements further than 1% of an Adam
     step plus one fp32 ulp, and the relative L2 error of the first step's
-    gradients."""
+    gradients; the relative L2 error of the projection embedding's first
+    gradient (`embedding_grads`)."""
+    def rel(a: dict, b: dict) -> float:
+        num = sum(float((a[k] - b[k]).float().square().sum()) for k in b)
+        den = sum(float(b[k].float().square().sum()) for k in b)
+        return (num / den) ** 0.5
+
     readings = {"metrics": max(
         abs(g[k] - w[k]) / abs(w[k])
         for g, w in zip(got["metrics"], ref["metrics"]) for k in w)}
@@ -187,10 +209,10 @@ def readings_against(got: dict, ref: dict, lr: float) -> dict:
             off += int((err > 1e-2 * lr + 2.0 ** -22 * want.abs()).sum())
             total += err.numel()
         readings[f"{net}_off"] = off / total
-        grads, want = got["grads"][net], ref["grads"][net]
-        num = sum(float((grads[k] - want[k]).square().sum()) for k in want)
-        den = sum(float(want[k].square().sum()) for k in want)
-        readings[f"{net}_grads"] = (num / den) ** 0.5
+        readings[f"{net}_grads"] = rel(got["grads"][net], ref["grads"][net])
+    readings["embedding_grads"] = rel(
+        {EMBEDDING: got["grads"]["discriminator"][EMBEDDING]},
+        {EMBEDDING: ref["grads"]["discriminator"][EMBEDDING]})
     return readings
 
 
@@ -257,6 +279,27 @@ def validate(inputs: dict, device: torch.device, workdir: str,
     return {"fid": fid, "n": n, "moments": [t.cpu() for t in totals]}
 
 
+def check_replicated_outcomes(inputs: dict, device: torch.device) -> dict:
+    """What `mesh.check_replicated` raises on this rank for equal states,
+    then with rank 1's first G parameter one ulp off ('' for nothing)."""
+    from semantic_pyramid_for_image_generation_torch.parallel import mesh
+
+    state = build_state(inputs, device)
+    mesh.broadcast_state(state)
+    outcomes = {}
+    for case in ("equal", "rank1_differs"):
+        if case == "rank1_differs" and mesh.rank() == 1:
+            with torch.no_grad():
+                p = next(state.generator.parameters()).view(-1)
+                p[0] = torch.nextafter(p[0], p[0] + 1)
+        try:
+            mesh.check_replicated(state, vgg_file_found=False)
+            outcomes[case] = ""
+        except RuntimeError as e:
+            outcomes[case] = str(e)
+    return outcomes
+
+
 def main(spec_path: str) -> int:
     from semantic_pyramid_for_image_generation_torch.parallel import mesh
 
@@ -274,6 +317,9 @@ def main(spec_path: str) -> int:
         result.update(snapshot(state), last_grads=gradients(state),
                       collective_bytes=dict(mesh.collective_bytes))
         torch.save(result, out / f"{run}_rank{rank}.pt")
+    if spec.get("replicated"):
+        torch.save(check_replicated_outcomes(inputs, device),
+                   out / f"replicated_rank{rank}.pt")
     if "fid" in inputs:
         torch.save(validate(inputs, device, str(out / "fid_run"), world, rank),
                    out / f"fid_rank{rank}.pt")
