@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
-the fused G/D train step, the Trainer, the VGG-16 fine-tune and data-parallel
-training.
+the fused G/D train step, the Trainer, the VGG-16 fine-tune, data-parallel
+training and the train step's perf modes.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -28,7 +28,9 @@ Phases; any failure raises and exits non-zero, before the result lines:
     generate batches (32: validation, 49: the grid), and all five kernels
     at the sites of every train step the smoke drives, per rank (16 rows in
     bf16 and fp32, 64 and 32 in bf16, 8 in fp32), the loss's fp32 pools
-    of the features and masks included.
+    of the features and masks included, and Kernels 1, 2 and 4 at phase
+    11's fused D pass over real ++ fake (2 x 64 rows in bf16, 2 x 8 in
+    fp32).
  4. End-to-end references: a tiny-width model on the card (kernels) against
     the same model on the CPU (plain versions): generate in fp32 and bf16,
     and two fp32 train steps (metrics, parameters, u/v, BN statistics).
@@ -109,11 +111,35 @@ Phases; any failure raises and exits non-zero, before the result lines:
     from G and the eval generator as phase 7's last validation had them,
     on its batches: moments and FID equal to phase 7's. Ranks are joined
     within 300 s and killed past it; the group has a 120 s timeout.
-11. The `kernels` JSON line (launches from the train path; the serving,
-    Trainer, fine-tune and rank-0 (a) paths' as `serving_launches`,
-    `trainer_launches`, `finetune_launches`, `parallel_rank_launches`;
-    Kernels 2 and 4 at the fine-tune's sites as `finetune_batch256`), the
-    card line again, and last the device line.
+11. The train step's perf modes (`--fused_d`, `--remat_vgg`,
+    `--remat_blocks`). (a) Full-width bf16 steps at batch 64 from one
+    state, 1 warm-up and 5 timed per mode: the default step, the canonical
+    projection alone (what --fused_d implies), each mode alone and all
+    three; median ms and spread, peak GiB; launch counters are reset before
+    (a) and each step must move them by its mode's counts
+    (PERF_MODE_LAUNCHES). (c) fp32, full width, batch 8, 2 steps from one
+    state: remat_vgg, remat_blocks and both against the default step
+    (metrics, G's and D's parameters, every u/v, every running statistic),
+    each limit the larger of a floor and 6x the witness (the default step
+    run again); remat_blocks with its recompute guard off must break the
+    hold. (d) fused_d against the separate passes, fp32, batch 8, 3 steps
+    with spectral updates frozen (u/v untouched), witness the separate
+    passes again; with updates on, the first step's real loss. (e) The CLI
+    at full width on a JPEG Places365 tree: `--train --fused_d --remat_vgg
+    --remat_blocks`, 2 steps of 8, checkpoint_000.pt; a default-mode run
+    resumes from it and takes 2 more. (f) Two gloo ranks on cuda:0 with
+    `--fused_d --remat_blocks`, fp32, as phase 10 (b) on seed 0: the ranks
+    bitwise, the hold against this process under phase 10's limits and
+    witness, launches, and the bytes all-reduced and all-gathered per rank
+    per step exactly as tests/torch_parallel_rank.py's
+    `step_collective_bytes` works them out.
+12. The `kernels` JSON line (launches from the train path; the serving,
+    Trainer, fine-tune, rank-0 (a) and perf-mode paths' as
+    `serving_launches`, `trainer_launches`, `finetune_launches`,
+    `parallel_rank_launches`, `perf_mode_launches` (with
+    `perf_mode_launches_per_step` per mode); Kernels 2 and 4 at the
+    fine-tune's sites as `finetune_batch256`), the card line again, and
+    last the device line.
 
 Imports torch, numpy and the port only; needs one card and no network.
 """
@@ -146,6 +172,34 @@ TRAIN_LAUNCHES = {  # per train step (chip_smoke phase 6)
 GENERATE_LAUNCHES = {  # per eval generate (VGG pyramid, then G)
     "pooled_kv_attention": 1, "upsample_2x": 11, "max_pool_2x2": 6,
     "max_pool_2x2_backward": 0, "upsample_2x_backward": 0}
+# the train step's perf modes (phase 11): mode -> (config fields,
+# make_train_step flags). "canonical" is the projection --fused_d implies,
+# without the fusion, so (a) shows each part of --fused_d's change.
+CANONICAL = {"compat_projection": False}
+PERF_MODES = {
+    "default": ({}, {}),
+    "canonical": (CANONICAL, {}),
+    "fused_d": (CANONICAL, {"fused_discriminator": True}),
+    "remat_vgg": ({}, {"remat_vgg": True}),
+    "remat_blocks": ({"remat_blocks": True}, {}),
+    "remat_both": ({"remat_blocks": True}, {"remat_vgg": True}),
+    "fused_d_remat_blocks": ({**CANONICAL, "remat_blocks": True},
+                             {"fused_discriminator": True}),
+    "all": ({**CANONICAL, "remat_blocks": True},
+            {"fused_discriminator": True, "remat_vgg": True}),
+}
+# launches per train step in each mode: the fused D pass drops one D
+# attention, its KV pool and that pool's backward; remat_vgg re-runs the
+# VGG's 5 pools on the fakes; remat_blocks the 2 upsamples of each of G's 5
+# blocks in the G phase (the D phase's G forward keeps no graph)
+PERF_MODE_LAUNCHES = {
+    mode: dict(zip(TRAIN_LAUNCHES, counts)) for mode, counts in {
+        "default": (5, 22, 30, 14, 11), "canonical": (5, 22, 30, 14, 11),
+        "fused_d": (4, 22, 29, 13, 11), "remat_vgg": (5, 22, 35, 14, 11),
+        "remat_blocks": (5, 32, 30, 14, 11), "remat_both": (5, 32, 35, 14, 11),
+        "fused_d_remat_blocks": (4, 32, 29, 13, 11),
+        "all": (4, 32, 34, 13, 11),
+    }.items()}
 EVAL_BATCHES = (2 * BATCH, 49)  # validation generates, the 7x7 grid
 TRAINER_STEPS = 4  # phase 7: training batches of BATCH
 VALIDATION_BATCHES = 2  # phase 7: validation batches of 2 * BATCH
@@ -339,6 +393,12 @@ def train_site_batches():
             (NCCL_BATCH, torch.bfloat16),
             (DP_BF16_BATCH // DP_WORLD, torch.bfloat16),
             (DP_FP32_BATCH // DP_WORLD, torch.float32)]
+
+
+def fused_d_site_batches():
+    """(rows, dtype) of D's fused pass in phase 11: 2 x 64 rows in bf16
+    ((a)), 2 x 8 in fp32 ((c), (d))."""
+    return [(2 * PM_BATCH, torch.bfloat16), (2 * PM_FP32_BATCH, torch.float32)]
 
 
 def tie_heavy(shape, dtype, g):
@@ -546,6 +606,12 @@ def check_kernels(device) -> dict:
         for name, spec in specs.items():
             hold(name, spec["train_sites"](dtype, batch),
                  f"{str(dtype)[6:]} train step batch {batch}")
+    # phase 11's fused D pass: D's attention and KV pool over real ++ fake
+    for rows, dtype in fused_d_site_batches():
+        what = f"{str(dtype)[6:]} fused-D pass of {rows} rows"
+        hold("pooled_kv_attention", attention_sites(dtype, rows), what)
+        for name in ("max_pool_2x2", "max_pool_2x2_backward"):
+            hold(name, [(kv_pool(rows), dtype)], what)
     torch.cuda.empty_cache()
     time_attention_backward(device, results["pooled_kv_attention"])
     return results
@@ -1800,14 +1866,16 @@ def reversed_halves(batch: dict) -> dict:
     return parallel_helpers().rows_of(batch, order)
 
 
-def dp_reference(device, workdir: str, seed: int) -> dict:
+def dp_reference(device, workdir: str, seed: int,
+                 mode: str = "default") -> dict:
     """(b)'s reference for one seed, in this process without a group: a
     full-width fp32 state from `seed` (u/v advanced 10 iterations) steps the
-    global batches of 16 with pinned latents. The initial state and the
-    batches go to `inputs<seed>.pt` for the ranks; the metrics, the first
-    step's gradients and the final G and D to `reference<seed>.pt`. Then the
-    witness steps the same rows with each half reversed from the same state;
-    its readings against the reference are returned."""
+    global batches of 16 with pinned latents, in perf mode `mode`
+    (PERF_MODES; phase 11 (f)). The initial state and the batches go to
+    `<mode>_inputs<seed>.pt` for the ranks; the metrics, the first step's
+    gradients and the final G and D to `<mode>_reference<seed>.pt`. Then
+    the witness steps the same rows with each half reversed from the same
+    state; its readings against the reference are returned."""
     import os
 
     from semantic_pyramid_for_image_generation_torch.config import (
@@ -1829,7 +1897,8 @@ def dp_reference(device, workdir: str, seed: int) -> dict:
     )
 
     h = parallel_helpers()
-    config = PyramidGANConfig(compute_dtype="float32")
+    fields, flags = PERF_MODES[mode]
+    config = PyramidGANConfig(compute_dtype="float32", **fields)
     state = init_train_state(config, device, lr=LR, seed=seed)
     for net in (state.generator, state.discriminator):
         advance_spectral_norm_(net, 10)
@@ -1844,8 +1913,8 @@ def dp_reference(device, workdir: str, seed: int) -> dict:
     inputs = {"batches": batches}
     for net in ("generator", "discriminator", "vgg"):
         inputs[net] = h.to_cpu(getattr(state, net).state_dict())
-    torch.save(inputs, os.path.join(workdir, f"inputs{seed}.pt"))
-    step = make_train_step()
+    torch.save(inputs, os.path.join(workdir, f"{mode}_inputs{seed}.pt"))
+    step = make_train_step(**flags)
     runs = []
     for rows in (lambda b: b, reversed_halves):
         for net in ("generator", "discriminator"):
@@ -1860,7 +1929,7 @@ def dp_reference(device, workdir: str, seed: int) -> dict:
         for net in ("generator", "discriminator"):
             run[net] = h.to_cpu(getattr(state, net).state_dict())
         runs.append(run)
-    torch.save(runs[0], os.path.join(workdir, f"reference{seed}.pt"))
+    torch.save(runs[0], os.path.join(workdir, f"{mode}_reference{seed}.pt"))
     return h.readings_against(runs[1], runs[0], LR)
 
 
@@ -1916,11 +1985,12 @@ def dp_bf16_steps(device) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
-def dp_fp32_runs(device, workdir: str) -> dict:
+def dp_fp32_runs(device, workdir: str, mode: str = "default",
+                 seeds=DP_SEEDS, runs=("sound", *DP_FAULTS)) -> dict:
     """(b) and (c) for each seed: the sound fp32 run and one run per planted
     fault, each from the seed's initial state, 2 steps of this rank's 8
-    rows; each run's digest, and on rank 0 its readings against the seed's
-    reference."""
+    rows in perf mode `mode`; each run's digest and collective bytes, and
+    on rank 0 its readings against the seed's reference."""
     import os
 
     from semantic_pyramid_for_image_generation_torch.config import (
@@ -1937,34 +2007,38 @@ def dp_fp32_runs(device, workdir: str) -> dict:
     )
 
     h = parallel_helpers()
-    state = init_train_state(PyramidGANConfig(compute_dtype="float32"),
-                             device, lr=LR)
+    fields, flags = PERF_MODES[mode]
+    state = init_train_state(PyramidGANConfig(compute_dtype="float32",
+                                              **fields), device, lr=LR)
     rows = mesh.shard_slice(DP_FP32_BATCH, DP_WORLD, mesh.rank())
-    step = make_train_step()
+    step = make_train_step(**flags)
     out = {}
-    for seed in DP_SEEDS:
-        inputs = torch.load(os.path.join(workdir, f"inputs{seed}.pt"),
+    for seed in seeds:
+        inputs = torch.load(os.path.join(workdir, f"{mode}_inputs{seed}.pt"),
                             weights_only=False)
-        ref = torch.load(os.path.join(workdir, f"reference{seed}.pt"),
+        ref = torch.load(os.path.join(workdir, f"{mode}_reference{seed}.pt"),
                          weights_only=False) if mesh.rank() == 0 else None
         state.vgg.load_state_dict(inputs["vgg"])
         batches = [batch_to_device(h.rows_of(b, rows), device)
                    for b in inputs["batches"]]
         out[seed] = {}
-        for run in ("sound", *DP_FAULTS):
+        for run in runs:
             for net in ("generator", "discriminator"):
                 getattr(state, net).load_state_dict(inputs[net])
             state.g_optimizer, state.d_optimizer = make_optimizers(
                 state.generator, state.discriminator, LR)
             state.step = 0
             mesh.broadcast_state(state)
+            sent = dict(mesh.collective_bytes)
             got = {"metrics": []}
             with h.planted(run):
                 for batch in batches:
                     _, m = step(state, batch)
                     got["metrics"].append({k: float(v) for k, v in m.items()})
                     got.setdefault("grads", h.gradients(state))
-            out[seed][run] = {"digest": mesh.state_digest(state)}
+            out[seed][run] = {
+                "digest": mesh.state_digest(state),
+                "bytes": {k: mesh.collective_bytes[k] - sent[k] for k in sent}}
             if ref is not None:
                 for net in ("generator", "discriminator"):
                     got[net] = h.to_cpu(getattr(state, net).state_dict())
@@ -1998,8 +2072,6 @@ def drive_gloo_ranks(device, card: str) -> dict:
     import shutil
     import tempfile
 
-    import torch.multiprocessing as mp
-
     workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     t0 = time.perf_counter()
     witness = {}
@@ -2007,16 +2079,7 @@ def drive_gloo_ranks(device, card: str) -> dict:
         witness[seed] = dp_reference(device, workdir, seed)
         torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
-    ctx = mp.start_processes(dp_rank, args=(workdir,
-                                            parallel_helpers().free_port()),
-                             nprocs=DP_WORLD, join=False,
-                             start_method="spawn")
-    deadline = time.monotonic() + DP_TIMEOUT_S
-    while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise AssertionError(f"the gloo ranks ran past {DP_TIMEOUT_S} s")
+    spawn_ranks(dp_rank, workdir)
     ranks = []
     for r in range(DP_WORLD):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
@@ -2195,6 +2258,489 @@ def drive_nccl_trainer(device, card: str, phase7: dict,
     shutil.rmtree(workdir)
     mesh.shutdown_distributed()
 
+# --------------------------------------------------------------- phase 11 --
+
+
+PM_TIMED = ("default", "canonical", "fused_d", "remat_vgg", "remat_blocks",
+            "all")  # (a)
+PM_BATCH = 64  # (a): full-width bf16 steps
+PM_STEPS = 6  # (a): 1 warm-up + 5 timed
+PM_FP32_BATCH = 8  # (c), (d): full-width fp32 holds
+PM_HOLD_STEPS = 2  # (c)
+PM_FUSED_STEPS = 3  # (d), as the JAX package's own claim runs it
+PM_CLI_BATCH = 8  # (e): two steps of 8 rows
+PM_GLOO_MODE = "fused_d_remat_blocks"  # (f)
+# (c) and (d): each limit is the larger of its floor here and
+# PM_WITNESS_FACTOR times the witness's reading (the same step run twice
+# from the same state: the card's fp32 step is not bitwise from run to
+# run). uv: the largest |difference| of a u/v element (unit vectors); bn:
+# the largest |difference| of a running statistic over that tensor's
+# largest |value|. The bn floor leaves room for the final BN's running
+# mean, which averages the output of biases whose gradient is zero in
+# exact arithmetic, so that their Adam steps go +-lr either way
+# (tests/test_torch_train_step.py): 2.6e-5 in (d) at tiny width on the CPU.
+# The unguarded recompute reads ~0.5 there.
+PM_LIMITS = {"metrics": 1e-4, "generator_off": 1e-3, "discriminator_off": 1e-3,
+             "uv": 1e-5, "bn": 1e-3}
+PM_WITNESS_FACTOR = DP_WITNESS_FACTOR
+
+
+def set_perf_mode(state, mode: str) -> dict:
+    """Give `state`'s G and D the config fields of perf mode `mode` (the
+    forward reads `compat_projection` and `remat_blocks` at each call) and
+    return its make_train_step flags."""
+    fields, flags = PERF_MODES[mode]
+    config = dataclasses.replace(state.generator.config, **{
+        "compat_projection": True, "remat_blocks": False, **fields})
+    state.generator.config = state.discriminator.config = config
+    return flags
+
+
+def reset_state(state, initial: dict) -> None:
+    """G and D back to `initial` (state dicts), fresh Adam, step 0."""
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        make_optimizers,
+    )
+
+    for net in ("generator", "discriminator"):
+        getattr(state, net).load_state_dict(initial[net])
+    state.g_optimizer, state.d_optimizer = make_optimizers(
+        state.generator, state.discriminator, LR)
+    state.step = 0
+
+
+def pinned_batches(config, batch: int, n: int, device, seed: int = SEED):
+    """`n` synthetic batches with pinned latents, on the card."""
+    from semantic_pyramid_for_image_generation_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        batch_to_device,
+    )
+
+    rng = np.random.default_rng(seed + 20)
+    out = []
+    for _ in range(n):
+        b = synthetic_batch(config, batch, rng)
+        for key in ("noise_d", "noise_g"):
+            b[key] = rng.standard_normal(
+                (batch, config.latent_dim)).astype(np.float32)
+        out.append(batch_to_device(b, device))
+    return out
+
+
+def drive_perf_modes(device, card: str) -> dict:
+    """(a) Full-width bf16 steps at batch 64 from one state, in each mode of
+    PM_TIMED: 1 warm-up and 5 timed steps; launch deltas exactly
+    PERF_MODE_LAUNCHES per step; median ms and spread, peak GiB."""
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        make_train_step,
+    )
+
+    state = trainer_state(device)
+    initial = {net: {k: v.clone() for k, v in
+                     getattr(state, net).state_dict().items()}
+               for net in ("generator", "discriminator")}
+    batches = train_batches(state.generator.config, PM_BATCH, PM_STEPS, device)
+    latents = torch.Generator(device).manual_seed(SEED)
+    results, per_step = {}, {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for mode in PM_TIMED:
+        step = make_train_step(**set_perf_mode(state, mode))
+        reset_state(state, initial)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for batch in batches:
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            _, metrics = step(state, batch, latents)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            after = kernels.launch_counts()
+            delta = {k: after[k] - before[k] for k in after}
+            if delta != PERF_MODE_LAUNCHES[mode]:
+                raise AssertionError(f"(a) {mode}: launches per step {delta}, "
+                                     f"expected {PERF_MODE_LAUNCHES[mode]}")
+            values = {k: float(v) for k, v in metrics.items()}
+            if not all(np.isfinite(v) for v in values.values()):
+                raise AssertionError(f"(a) {mode}: non-finite losses {values}")
+        timed = times[1:]
+        results[mode] = {
+            "ms_per_step": statistics.median(timed),
+            "spread_ms": [min(timed), max(timed)],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        per_step[mode] = delta
+        print(f"  (a) {card}: {mode}, bf16 batch {PM_BATCH}: "
+              f"{results[mode]['ms_per_step']:.2f} ms/step median of "
+              f"{len(timed)} (spread {min(timed):.2f}-{max(timed):.2f}; first "
+              f"{times[0]:.1f}), {PM_BATCH * 1e3 / results[mode]['ms_per_step']:.1f}"
+              f" images/s, peak {results[mode]['peak_gib']:.2f} GiB, launches "
+              f"per step {delta}", flush=True)
+    counts = kernels.launch_counts()
+    state.generator.config = state.discriminator.config = dataclasses.replace(
+        state.generator.config, compat_projection=True, remat_blocks=False)
+    del state, batches, initial
+    torch.cuda.empty_cache()
+    return {"launches": counts, "per_step": per_step, "results": results}
+
+
+def pm_readings(got: dict, ref: dict) -> dict:
+    """A run's readings against a reference run (`pm_run`s), under the
+    names of PM_LIMITS: the worst relative metric error; the share of G's
+    and of D's parameter elements further than 1% of an Adam step plus one
+    fp32 ulp; the largest u/v error; the worst running-statistics error
+    relative to its tensor's largest value."""
+    readings = {"metrics": max(
+        abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+        for g, w in zip(got["metrics"], ref["metrics"]) for k in w),
+        "uv": 0.0, "bn": 0.0}
+    for net in ("generator", "discriminator"):
+        off = total = 0
+        for key, want in ref[net].items():
+            if not want.is_floating_point():
+                continue
+            err = (got[net][key] - want).abs()
+            if key.endswith(("weight_u", "weight_v")):
+                readings["uv"] = max(readings["uv"], float(err.max()))
+            elif key.endswith(("running_mean", "running_var")):
+                readings["bn"] = max(readings["bn"], float(err.max()) / max(
+                    float(want.abs().max()), 1e-30))
+            else:
+                off += int((err > 1e-2 * LR + 2.0 ** -22 * want.abs()).sum())
+                total += err.numel()
+        readings[f"{net}_off"] = off / total
+    return readings
+
+
+def pm_limits(witness: dict) -> dict:
+    return {k: max(floor, PM_WITNESS_FACTOR * witness[k])
+            for k, floor in PM_LIMITS.items()}
+
+
+def fp32_hold_state(device):
+    """A full-width fp32 state from SEED, u/v advanced 10 iterations, and
+    a copy of its G and D state dicts on the card."""
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.models.layers import (
+        advance_spectral_norm_,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        init_train_state,
+    )
+
+    state = init_train_state(PyramidGANConfig(compute_dtype="float32"),
+                             device, lr=LR, seed=SEED)
+    for net in (state.generator, state.discriminator):
+        advance_spectral_norm_(net, 10)
+    initial = {net: {k: v.clone() for k, v in
+                     getattr(state, net).state_dict().items()}
+               for net in ("generator", "discriminator")}
+    return state, initial
+
+
+def pm_run(state, initial: dict, batches, mode: str,
+           spectral_update: bool = True) -> dict:
+    """`state` from `initial` through `batches` in perf mode `mode`."""
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        make_train_step,
+    )
+
+    step = make_train_step(spectral_update=spectral_update,
+                           **set_perf_mode(state, mode))
+    reset_state(state, initial)
+    run = {"metrics": []}
+    for batch in batches:
+        _, m = step(state, batch)
+        run["metrics"].append({k: float(v) for k, v in m.items()})
+    for net in ("generator", "discriminator"):
+        run[net] = parallel_helpers().to_cpu(getattr(state, net).state_dict())
+    return run
+
+
+def check_remat_holds(device, card: str) -> None:
+    """(c) fp32, full width, batch 8, 2 steps with spectral updates from one
+    state: remat_vgg, remat_blocks and both against the default step, each
+    within its limit; the witness is the default step run again; the
+    planted fault (remat_blocks recomputed without its guard: u/v advanced
+    twice, the running statistics' momentum taken twice) must break the
+    hold."""
+    h = parallel_helpers()
+    state, initial = fp32_hold_state(device)
+    batches = pinned_batches(state.generator.config, PM_FP32_BATCH,
+                             PM_HOLD_STEPS, device)
+    ref = pm_run(state, initial, batches, "default")
+    witness = pm_readings(pm_run(state, initial, batches, "default"), ref)
+    limits = pm_limits(witness)
+    print(f"  (c) {card}: fp32 batch {PM_FP32_BATCH}, {PM_HOLD_STEPS} steps "
+          f"against the default step; witness (the default step again) "
+          f"{witness}; limits, the larger of {PM_LIMITS} and "
+          f"{PM_WITNESS_FACTOR}x the witness: {limits}", flush=True)
+    for mode in ("remat_vgg", "remat_blocks", "remat_both"):
+        readings = pm_readings(pm_run(state, initial, batches, mode), ref)
+        print(f"  (c) {mode}: {readings}", flush=True)
+        if broken(readings, limits):
+            raise AssertionError(f"(c) {mode} breaks {broken(readings, limits)}")
+    with h.planted("recompute_unguarded"):
+        readings = pm_readings(pm_run(state, initial, batches, "remat_blocks"),
+                               ref)
+    print(f"  (c) planted: remat_blocks without the recompute guard breaks "
+          f"{broken(readings, limits)}; readings {readings}", flush=True)
+    if not broken(readings, limits):
+        raise AssertionError("(c) the hold missed the unguarded recompute")
+    set_perf_mode(state, "default")
+    del state, initial, batches
+    torch.cuda.empty_cache()
+
+
+def check_fused_d(device, card: str) -> None:
+    """(d) fp32, full width, batch 8, canonical projection: fused_d against
+    the separate passes over 3 steps with spectral updates frozen (u/v
+    untouched in both), within the limits of its witness (the separate
+    passes again); with updates on, the first step's real loss, whose pass
+    sees the same u/v in both modes."""
+    state, initial = fp32_hold_state(device)
+    batches = pinned_batches(state.generator.config, PM_FP32_BATCH,
+                             PM_FUSED_STEPS, device, seed=SEED + 1)
+    ref = pm_run(state, initial, batches, "canonical", spectral_update=False)
+    witness = pm_readings(pm_run(state, initial, batches, "canonical",
+                                 spectral_update=False), ref)
+    limits = pm_limits(witness)
+    fused = pm_run(state, initial, batches, "fused_d", spectral_update=False)
+    readings = pm_readings(fused, ref)
+    frozen = all(torch.equal(run[net][k], initial[net][k].cpu())
+                 for run in (ref, fused) for net in ("generator",
+                                                     "discriminator")
+                 for k in initial[net] if k.endswith(("weight_u", "weight_v")))
+    real = [pm_run(state, initial, batches[:1], mode)["metrics"][0][
+        "loss_discriminator_real"] for mode in ("canonical", "fused_d")]
+    real_err = abs(real[1] - real[0]) / abs(real[0])
+    print(f"  (d) {card}: fp32 batch {PM_FP32_BATCH}, canonical projection, "
+          f"spectral updates frozen, {PM_FUSED_STEPS} steps: fused_d against "
+          f"the separate passes {readings}; witness {witness}; limits "
+          f"{limits}; u/v untouched in both: {frozen}. Spectral updates on, "
+          f"first step's real loss: relative difference {real_err:.3g} "
+          f"(limit {limits['metrics']:.3g})", flush=True)
+    if broken(readings, limits) or not frozen or real_err > limits["metrics"]:
+        raise AssertionError(f"(d) fused_d disagrees with the separate "
+                             f"passes: {broken(readings, limits)}, frozen "
+                             f"{frozen}, real loss {real_err:.3g}")
+    set_perf_mode(state, "default")
+    del state, initial, batches
+    torch.cuda.empty_cache()
+
+
+def write_places_tree(root: str, n_train: int, n_val: int) -> None:
+    """A Places365 tree (`<root>/{train,val}/<class>/<i>.jpg` and the split
+    files) of random 256x256 JPEGs from SEED, two classes."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    for split, n in (("train", n_train), ("val", n_val)):
+        lines = []
+        for c in ("abbey", "zoo"):
+            os.makedirs(os.path.join(root, split, c))
+            for i in range(n // 2):
+                Image.fromarray(rng.integers(0, 256, (256, 256, 3),
+                                             dtype=np.uint8)).save(
+                    os.path.join(root, split, c, f"{i}.jpg"))
+                lines.append(f"{split}/{c}/{i}.jpg")
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def drive_perf_mode_cli(device, card: str) -> None:
+    """(e) cli/main.py at full width on a JPEG Places365 tree: `--train
+    --fused_d --remat_vgg --remat_blocks` takes 2 steps of 8 and writes
+    checkpoint_000.pt; a default-mode run resumes from it with
+    --load_checkpoint and takes 2 more. Each run's backward launches are 2
+    steps of its mode's (its generates launch none)."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    from semantic_pyramid_for_image_generation_torch.cli import main as cli
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_perf_cli_")
+    try:
+        root = os.path.join(workdir, "places")
+        write_places_tree(root, 2 * PM_CLI_BATCH, PM_CLI_BATCH)
+        common = ["--train", "--device", str(device), "--epochs", "1",
+                  "--batch_size", str(PM_CLI_BATCH), "--path_to_places365", root,
+                  "--fid_images", str(PM_CLI_BATCH), "--num_workers", "4",
+                  "--allow_random_fid", "--fid_device_stats",
+                  "--validate_after_n_iterations", "1000000", "--log_every",
+                  "1", "--load_pretrained_vgg16", ""]
+        runs = (("all", ["--fused_d", "--remat_vgg", "--remat_blocks"]),
+                ("default", []))
+        ckpt, summary = None, []
+        for mode, flags in runs:
+            save = os.path.join(workdir, mode)
+            argv = common + flags + ["--save_data_path", save]
+            if ckpt is not None:
+                argv += ["--load_checkpoint", ckpt]
+            printed = io.StringIO()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(printed), \
+                        contextlib.redirect_stderr(printed), \
+                        warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    cli.main(argv)
+            except BaseException:
+                print(printed.getvalue()[-4000:], flush=True)
+                raise
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            (ckpt,) = glob.glob(os.path.join(save, "models_*",
+                                             "checkpoint_000.pt"))
+            saved = torch.load(ckpt, map_location="cpu", weights_only=False)
+            (metrics,) = glob.glob(os.path.join(save, "metrics_*"))
+            losses = np.load(os.path.join(metrics, "loss_generator.npy"))
+            want_step = 2 * len(summary) + 2
+            for name in ("max_pool_2x2_backward", "upsample_2x_backward"):
+                if counts[name] != 2 * PERF_MODE_LAUNCHES[mode][name]:
+                    raise AssertionError(f"(e) {mode}: {name} launched "
+                                         f"{counts[name]} times")
+            if saved["step"] != want_step or len(losses) != 2 or \
+                    not np.isfinite(losses).all():
+                raise AssertionError(f"(e) {mode}: checkpoint step "
+                                     f"{saved['step']}, losses {losses}")
+            if summary and "Restored checkpoint" not in printed.getvalue():
+                raise AssertionError("(e) the default-mode run did not resume")
+            summary.append(f"{mode} {' '.join(flags) or '(no flags)'}: "
+                           f"{seconds:.1f} s, checkpoint step "
+                           f"{saved['step']}, loss_generator "
+                           f"{[round(float(x), 4) for x in losses]}, "
+                           f"launches {counts}")
+            del saved
+        print(f"  (e) {card}: the CLI at full width, 2 steps of "
+              f"{PM_CLI_BATCH} per run (with validation at start and the "
+              f"epoch-end grid and checkpoint): " + "; then ".join(summary),
+              flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def pm_rank(rank: int, workdir: str, port: int) -> None:
+    """One gloo rank of (f) on cuda:0 (spawned): the sound fp32 run of
+    PM_GLOO_MODE from phase 10's seed, its launches; to
+    `<workdir>/pm_rank<r>.json`."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
+                      LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.parallel import mesh
+
+    device = mesh.init_distributed("cuda", backend="gloo")
+    kernels.reset_launch_counts()
+    out = dp_fp32_runs(device, workdir, mode=PM_GLOO_MODE, seeds=(SEED,),
+                       runs=("sound",))[SEED]["sound"]
+    out["launches"] = kernels.launch_counts()
+    with open(os.path.join(workdir, f"pm_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    mesh.shutdown_distributed()
+
+
+def spawn_ranks(fn, workdir: str) -> None:
+    """DP_WORLD spawned processes of `fn(rank, workdir, port)`, joined within
+    DP_TIMEOUT_S (killed and failed past it)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(workdir,
+                                       parallel_helpers().free_port()),
+                             nprocs=DP_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"the gloo ranks ran past {DP_TIMEOUT_S} s")
+
+
+def drive_perf_mode_ranks(device, card: str) -> None:
+    """(f) Two gloo ranks on cuda:0 in PM_GLOO_MODE (--fused_d
+    --remat_blocks), fp32, 8 rows each of global batches of 16, 2 steps,
+    against this process on the 16 under phase 10's limits and witness; the
+    ranks bitwise equal; launches per rank 2 steps of the mode's; the bytes
+    each rank all-reduces and gathers per step exactly as
+    `step_collective_bytes` works them out."""
+    import os
+    import shutil
+    import tempfile
+    import types
+
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.models.discriminator import (  # noqa: E501
+        Discriminator,
+    )
+    from semantic_pyramid_for_image_generation_torch.models.generator import (
+        Generator,
+    )
+
+    h = parallel_helpers()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_pm_dp_")
+    try:
+        witness = dp_reference(device, workdir, SEED, mode=PM_GLOO_MODE)
+        torch.cuda.empty_cache()
+        spawn_ranks(pm_rank, workdir)
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(workdir, f"pm_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    config = PyramidGANConfig(compute_dtype="float32",
+                              **PERF_MODES[PM_GLOO_MODE][0])
+    with torch.device("meta"):
+        nets = types.SimpleNamespace(generator=Generator(config),
+                                     discriminator=Discriminator(config))
+    per_step = h.step_collective_bytes(nets, DP_FP32_BATCH // DP_WORLD,
+                                       DP_WORLD)
+    want_bytes = {k: DP_FP32_STEPS * v for k, v in per_step.items()}
+    want_launches = {k: DP_FP32_STEPS * v for k, v in
+                     PERF_MODE_LAUNCHES[PM_GLOO_MODE].items()}
+    limits = {k: max(floor, DP_WITNESS_FACTOR * witness[k])
+              for k, floor in DP_LIMITS.items()}
+    readings = ranks[0]["readings"]
+    print(f"  (f) {card}: {PM_GLOO_MODE}, fp32, {DP_WORLD} ranks x "
+          f"{DP_FP32_BATCH // DP_WORLD} rows vs one process on the "
+          f"{DP_FP32_BATCH}, {DP_FP32_STEPS} steps: {readings}; witness "
+          f"{witness}; limits {limits}; ranks' digests "
+          f"{[r['digest'][:12] for r in ranks]}; bytes per rank over the "
+          f"steps {[r['bytes'] for r in ranks]} (worked out: {want_bytes}); "
+          f"launches per rank {[r['launches'] for r in ranks]}", flush=True)
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("(f) the ranks' states differ")
+    if broken(readings, limits):
+        raise AssertionError(f"(f) the ranks break {broken(readings, limits)}")
+    for r in ranks:
+        if r["bytes"] != want_bytes or r["launches"] != want_launches:
+            raise AssertionError(f"(f) bytes {r['bytes']} or launches "
+                                 f"{r['launches']} are not {want_bytes}, "
+                                 f"{want_launches}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2284,6 +2830,23 @@ def main() -> int:
     drive_nccl_trainer(device, card, trainer["validation"],
                        train_results["bfloat16"]["ms_per_step"])
     print(f"  phase 10 took {time.perf_counter() - start:.1f} s", flush=True)
+
+    print("[11] perf modes: full-width bf16 steps per mode, the fp32 remat "
+          "and fused-D holds, the CLI, two gloo ranks", flush=True)
+    start = time.perf_counter()
+    perf = drive_perf_modes(device, card)
+    for name, count in perf["launches"].items():
+        if count == 0:
+            raise AssertionError(f"{name} was never launched in the perf "
+                                 "modes")
+        kernels[name]["perf_mode_launches"] = count
+        kernels[name]["perf_mode_launches_per_step"] = {
+            mode: delta[name] for mode, delta in perf["per_step"].items()}
+    check_remat_holds(device, card)
+    check_fused_d(device, card)
+    drive_perf_mode_cli(device, card)
+    drive_perf_mode_ranks(device, card)
+    print(f"  phase 11 took {time.perf_counter() - start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line())

@@ -25,9 +25,13 @@ except:
             semantic_pyramid_for_image_generation_torch.cli.main \
             --multihost --train --path_to_places365 places365_standard
 
-  * modes the port does not have yet raise NotImplementedError: `--fsdp` > 1
-    (sharded state), `--fused_d`, `--remat_vgg` and `--remat_blocks` (perf
-    modes);
+  * the perf modes run as in the JAX package: `--fused_d` (one D pass
+    over real ++ fake in the D phase; implies the canonical projection,
+    as `--canonical_projection` gives it), `--remat_vgg` (the VGG forward
+    on the fakes recomputed in the backward) and `--remat_blocks` (G's and
+    D's residual blocks recomputed in the backward);
+  * `--fsdp` > 1 (sharded state) raises NotImplementedError: the port does
+    not have it yet;
   * `--gpus_to_use` and `--use_data_parallel` are accepted and ignored, as
     in the JAX package.
 """
@@ -103,11 +107,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="canonical (B,1) projection-discriminator head instead "
                         "of the reference's (B,B,128) broadcast quirk")
     p.add_argument("--fused_d", default=False, action="store_true",
-                   help="not in the port yet (raises)")
+                   help="one D pass over real ++ fake in the D phase "
+                        "(implies --canonical_projection)")
     p.add_argument("--remat_vgg", default=False, action="store_true",
-                   help="not in the port yet (raises)")
+                   help="rematerialize the VGG-fake forward in the G backward")
     p.add_argument("--remat_blocks", default=False, action="store_true",
-                   help="not in the port yet (raises)")
+                   help="rematerialize G/D residual blocks in the backward")
     p.add_argument("--compact_feed", default=False, action="store_true",
                    help="feed uint8 images/masks and normalize on device")
     p.add_argument("--tensorboard", default=False, action="store_true",
@@ -122,17 +127,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_supported(args) -> None:
-    """Raise for flags of modes the port does not have yet."""
-    waiting = [(args.fsdp > 1, "--fsdp > 1",
-                "16 (FSDP; item 13 brought the data axis only)"),
-               (args.fused_d, "--fused_d", "6 (perf modes)"),
-               (args.remat_vgg, "--remat_vgg", "6 (perf modes)"),
-               (args.remat_blocks, "--remat_blocks", "6 (perf modes)")]
-    for given, flag, item in waiting:
-        if given:
-            raise NotImplementedError(
-                f"{flag}: not in the PyTorch port yet (ROADMAP Queue 1, item "
-                f"{item})")
+    """Raise for `--fsdp` > 1, the one mode the port does not have yet, and
+    for flag values the port cannot run."""
+    if args.fsdp > 1:
+        raise NotImplementedError(
+            "--fsdp > 1: not in the PyTorch port yet (ROADMAP Queue 1, item "
+            "16, FSDP; item 13 brought the data axis only)")
     if not args.pallas and args.device.startswith("cuda"):
         raise ValueError("--no-pallas: the port has no kernel-free path on "
                          "the card; its kernels' plain versions run on the "
@@ -154,7 +154,8 @@ def config_from_args(args):
     return PyramidGANConfig(
         channels_factor=args.channel_factor, compute_dtype=args.dtype,
         vgg_width_factor=args.vgg_width_factor,
-        compat_projection=not args.canonical_projection)
+        compat_projection=not (args.canonical_projection or args.fused_d),
+        remat_blocks=args.remat_blocks)
 
 
 def build_trainer(args):
@@ -231,7 +232,8 @@ def build_trainer(args):
         inception_state_dict=inception,
         allow_random_fid=args.allow_random_fid,
         fid_device_stats=args.fid_device_stats,
-        compat_inference_indices=args.compat_inference_indices)
+        compat_inference_indices=args.compat_inference_indices,
+        remat_vgg=args.remat_vgg, fused_discriminator=args.fused_d)
 
     if args.load_checkpoint:
         restore_checkpoint(args.load_checkpoint, trainer.state)

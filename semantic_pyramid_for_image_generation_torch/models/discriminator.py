@@ -15,7 +15,10 @@ this rank's rows: (B_global, B, 128).
 
 Keys follow the reference layout (`layers.0..11`, `classification`,
 `embedding`), as the JAX package's `export_discriminator_state_dict` emits
-them. 16,820,994 parameters at full width.
+them. 16,820,994 parameters at full width. With `config.remat_blocks` the
+input block and the six residual blocks run under `layers.remat`, as the
+JAX package wraps them in `nn.remat`; the attention and the head are not
+wrapped.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from semantic_pyramid_for_image_generation_torch.models.layers import (
     SelfAttention,
     SNEmbedding,
     SNLinear,
+    remat,
 )
 from semantic_pyramid_for_image_generation_torch.models.vgg16 import (
     compute_dtype,
@@ -73,7 +77,12 @@ class Discriminator(nn.Module):
         dtype = self.dtype
         x = images.to(dtype).contiguous(memory_format=torch.channels_last)
         for layer in self.layers:
-            x = layer(x)
+            if self.config.remat_blocks and isinstance(
+                    layer, (DiscriminatorInputResidualBlock,
+                            DiscriminatorResidualBlock)):
+                x = remat(layer, x)
+            else:
+                x = layer(x)
         labels = class_onehot.argmax(dim=-1)
         if self.config.compat_projection:
             # emb over the global batch's i: every rank's labels (the

@@ -9,7 +9,10 @@ third; final block (up2x -> BN -> lrelu -> SN3x3 -> lrelu -> SN1x1) and tanh.
 
 Keys follow the reference layout (`main_path.0..5` with the attention at
 `main_path.3`, `final_block.1/3/5`, ...). 29,967,047 parameters at full
-width.
+width. With `config.remat_blocks` each residual block runs under
+`layers.remat` (its activations recomputed in the backward), as the JAX
+package wraps them in `nn.remat`; the attention and the linear and final
+blocks are not wrapped.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from semantic_pyramid_for_image_generation_torch.models.layers import (
     SNConv2d,
     SNLinear,
     Upsample2x,
+    remat,
 )
 from semantic_pyramid_for_image_generation_torch.models.vgg16 import (
     compute_dtype,
@@ -100,7 +104,10 @@ class Generator(nn.Module):
                 continue
             feat, mask = features[depth].to(dtype), masks[depth].to(dtype)
             masked = torch.cat([feat * mask, mask], dim=1)
-            x = module(x, masked, class_onehot)
+            if self.config.remat_blocks:
+                x = remat(module, x, masked, class_onehot)
+            else:
+                x = module(x, masked, class_onehot)
             depth -= 1
         for layer in self.final_block:
             x = layer(x)

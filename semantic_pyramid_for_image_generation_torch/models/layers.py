@@ -19,12 +19,14 @@ mode reuses the stored u/v and running statistics.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from semantic_pyramid_for_image_generation_torch.ops.cuda.attention import (
     PooledKVAttentionFunction,
@@ -88,6 +90,7 @@ class _SpectralNormLayer(nn.Module):
         self.register_buffer("weight_sn", None, persistent=False)
         self._sn_versions = None
         self.spectral_update = True
+        self.recompute_guard: Optional[RecomputeGuard] = None
         self.initialize()
 
     @torch.no_grad()
@@ -102,9 +105,19 @@ class _SpectralNormLayer(nn.Module):
 
     def normalized_weight(self) -> torch.Tensor:
         if self.training:
+            guard = self.recompute_guard
+            if guard is not None and guard.replaying:
+                # a checkpoint's recompute: the sigma of this layer's own
+                # forward, no power iteration, the buffers left alone
+                u, v = guard.vectors[self]
+                sigma, _, _ = spectral_norm_weight(
+                    weight_matrix(self.weight_orig), u, v, update=False)
+                return self.weight_orig / sigma
             sigma, u, v = spectral_norm_weight(
                 weight_matrix(self.weight_orig), self.weight_u,
                 self.weight_v, update=self.spectral_update)
+            if guard is not None:
+                guard.vectors[self] = (u, v)
             self.weight_u, self.weight_v = u, v
             self.weight_sn = None
             return self.weight_orig / sigma
@@ -124,6 +137,57 @@ class _SpectralNormLayer(nn.Module):
 
     def _bias(self, dtype: torch.dtype) -> Optional[torch.Tensor]:
         return None if self.bias is None else self.bias.to(dtype)
+
+
+class RecomputeGuard:
+    """Keeps a checkpointed block's recompute from advancing its state again.
+
+    A training forward advances state as it runs: each spectral layer takes
+    a power iteration and rebinds u/v, each batch norm a momentum step of
+    its running statistics. JAX's `nn.remat` re-runs pure functions (its
+    power iteration runs outside the blocks, its batch statistics are an
+    output), but `torch.utils.checkpoint` re-runs this forward during the
+    backward: u/v would advance a second time and the re-run would divide
+    by another sigma than the forward did, so the gradients would be
+    silently wrong, and the running statistics would take their momentum
+    twice. D runs on real and on fake before one backward, so by the
+    recompute the buffers may hold a later pass's u/v.
+
+    One guard per checkpointed call; `contexts` is checkpoint's
+    `context_fn`. The forward context records each spectral layer's (u, v)
+    (each runs once per block call); the recompute context replays them
+    with no power iteration and leaves the buffers and the running
+    statistics alone."""
+
+    def __init__(self, block: nn.Module):
+        self.stateful = [m for m in block.modules()
+                         if isinstance(m, (_SpectralNormLayer, nn.BatchNorm2d))]
+        self.vectors = {}  # spectral layer -> the (u, v) of its forward
+        self.replaying = False
+
+    def contexts(self):
+        return self._bound(replaying=False), self._bound(replaying=True)
+
+    @contextlib.contextmanager
+    def _bound(self, replaying: bool):
+        self.replaying = replaying
+        for m in self.stateful:
+            m.recompute_guard = self
+        try:
+            yield
+        finally:
+            for m in self.stateful:
+                m.recompute_guard = None
+
+
+def remat(block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+    """`block(*args)` keeping none of its activations for the backward,
+    which re-runs the block behind a `RecomputeGuard`. Without gradients
+    (the D phase's G forward) the block just runs."""
+    if not torch.is_grad_enabled():
+        return block(*args)
+    return checkpoint(block, *args, use_reentrant=False,
+                      context_fn=RecomputeGuard(block).contexts)
 
 
 def fold_avg_pool(weight: torch.Tensor) -> torch.Tensor:
@@ -210,7 +274,8 @@ def _moments(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool
     rank's rows, as GSPMD computes them in JAX) in float32, in JAX's formula
     var = E[x^2] - E[x]^2, and one momentum step of bn's running mean and
     unbiased running var (n = B*H*W), in JAX's order of operations. The
-    running statistics come out the same on every rank."""
+    running statistics come out the same on every rank. A checkpoint's
+    recompute (`RecomputeGuard`) takes no momentum step."""
     if not training:
         return bn.running_mean, bn.running_var
     x32 = x.float()
@@ -222,6 +287,9 @@ def _moments(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool
     else:
         mean, ex2, unbiased = _global_moments(x32)
     var = ex2 - mean * mean
+    guard = getattr(bn, "recompute_guard", None)
+    if guard is not None and guard.replaying:
+        return mean, var  # a checkpoint's recompute: the step was taken
     m = bn.momentum
     with torch.no_grad():
         bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)

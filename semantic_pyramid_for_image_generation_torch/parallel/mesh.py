@@ -9,7 +9,9 @@ written out:
     `all_reduce_sum` (the batch-norm sums, models/layers.py) and
     `all_gather_rows` (the labels the projection head pairs with,
     models/discriminator.py; the fakes and latents of the diversity loss,
-    train/losses.py);
+    train/losses.py). With `remat_blocks` the batch-norm all-reduces of
+    G's blocks run again when the backward recomputes the blocks, on every
+    rank in the same order, and `collective_bytes` counts the re-runs;
   * explicit: `all_reduce_gradients` between each backward and its
     optimizer step, one flat bucket per network, summed;
     `broadcast_state` from rank 0, once, at construction (as DDP does);

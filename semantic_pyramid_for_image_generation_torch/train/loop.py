@@ -109,10 +109,15 @@ class Trainer:
         fid_device_stats: bool = False,
         compat_inference_indices: bool = False,
         write_grids: bool = True,
+        remat_vgg: bool = False,
+        fused_discriminator: bool = False,
     ) -> None:
         """`state` defaults to a random init from `seed` on `device`.
         `write_grids=False` keeps each sweep grid as the array `last_grid`
-        and writes no PNG (PIL is imported only to write one)."""
+        and writes no PNG (PIL is imported only to write one).
+        `remat_vgg` and `fused_discriminator` are the train step's perf
+        modes (train/step.py::make_train_step); `config.remat_blocks` is
+        the third."""
         self.device = resolve_device(device)
         self.config = config
         self.training_dataset = training_dataset
@@ -123,7 +128,9 @@ class Trainer:
             config, self.device, lr=lr, seed=seed)
         broadcast_state(self.state)
         self.is_lead = rank() == 0
-        self.step_fn = make_train_step(w_rec=w_rec, w_div=w_div)
+        self.step_fn = make_train_step(
+            w_rec=w_rec, w_div=w_div, remat_vgg=remat_vgg,
+            fused_discriminator=fused_discriminator)
         self.fid_evaluator = FIDEvaluator(
             inception_state_dict, self.device, allow_random=allow_random_fid,
             device_statistics=fid_device_stats)

@@ -10,6 +10,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from semantic_pyramid_for_image_generation_torch.config import (
     DEFAULT_W_DIV,
@@ -77,6 +78,8 @@ def batch_to_device(batch: Mapping[str, Any], device: torch.device) -> Batch:
 
 def make_train_step(w_rec: float = DEFAULT_W_REC,
                     w_div: float = DEFAULT_W_DIV,
+                    remat_vgg: bool = False,
+                    fused_discriminator: bool = False,
                     spectral_update: bool = True
                     ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build the fused `(state, batch, rng) -> (state, metrics)` step.
@@ -85,7 +88,8 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
       1. the frozen VGG-16 pyramid of the real batch (no gradients);
       2. D phase: a no-grad, training-mode G forward on noise_d (advances
          G's u/v and batch-norm statistics), D on real then on fake (two
-         advances of D's u/v), the LSGAN D loss, an Adam step of D;
+         advances of D's u/v; one pass and one advance with
+         `fused_discriminator`), the LSGAN D loss, an Adam step of D;
       3. G phase: G with gradients on noise_g (G's second advance), the
          *updated* D on the fakes (D's third advance), a second VGG forward
          on the fakes, the LSGAN, diversity and masked semantic
@@ -98,6 +102,23 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
     device (`batch_to_device`); it may pin the per-phase latents as
     `noise_d` / `noise_g`, else they are drawn from `rng` (a
     torch.Generator on the device; None uses torch's global generator).
+
+    remat_vgg: the G phase's VGG forward on the fakes keeps none of its
+    activations; the backward recomputes it (`torch.utils.checkpoint`, as
+    the JAX step's `jax.checkpoint`). The VGG holds no state that a forward
+    advances.
+
+    fused_discriminator: the D phase runs D once on real ++ fake (2B rows)
+    and splits the scores, so D's u/v advance once in the D phase, twice per
+    step. Needs the canonical projection (`compat_projection=False`, else
+    ValueError): the (B, B, 128) broadcast pairs rows across the batch and
+    cannot be split. With spectral updates frozen the step computes what
+    the separate passes compute, up to the summation order of a 2B-row
+    batch. Over several ranks each rank fuses its own rows.
+
+    Residual blocks are recomputed in the backward when the networks'
+    config has `remat_blocks` (models/layers.py::remat); the recompute runs
+    inside the step's `exact_float32`, as the forward does.
 
     spectral_update: the test switch of the JAX step; False freezes u/v
     (every sigma reuses the stored vectors). float32 runs without TF32 in
@@ -115,6 +136,10 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
                    rng: Optional[torch.Generator] = None):
         generator, discriminator, vgg = (state.generator, state.discriminator,
                                          state.vgg)
+        if fused_discriminator and discriminator.config.compat_projection:
+            raise ValueError("fused_discriminator needs compat_projection="
+                             "False: the (B, B, 128) projection pairs rows "
+                             "across the batch and cannot be split")
         generator.train()
         discriminator.train()
         vgg.eval()
@@ -140,8 +165,16 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
             noise_d = noise("noise_d")
             with torch.no_grad():
                 fake_d = generator(noise_d, features_real, masks, labels)
+            if fused_discriminator:
+                pred = discriminator(
+                    torch.cat([images.to(fake_d.dtype), fake_d]),
+                    torch.cat([labels, labels]))
+                pred_real, pred_fake = pred[:b], pred[b:]
+            else:
+                pred_real = discriminator(images, labels)
+                pred_fake = discriminator(fake_d, labels)
             loss_d_real, loss_d_fake = lsgan_discriminator_loss(
-                discriminator(images, labels), discriminator(fake_d, labels))
+                pred_real, pred_fake)
             state.d_optimizer.zero_grad(set_to_none=True)
             (loss_d_real + loss_d_fake).backward()
             all_reduce_gradients(discriminator)
@@ -151,8 +184,10 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
             fake = generator(noise_g, features_real, masks, labels)
             loss_g = lsgan_generator_loss(discriminator(fake, labels))
             loss_div = w_div * diversity_loss(fake, noise_g)
+            features_fake = (checkpoint(vgg, fake, use_reentrant=False)
+                             if remat_vgg else vgg(fake))
             loss_rec = w_rec * semantic_reconstruction_loss(
-                features_real, vgg(fake), masks)
+                features_real, features_fake, masks)
             state.g_optimizer.zero_grad(set_to_none=True)
             (loss_g + loss_div + loss_rec).backward(
                 inputs=list(generator.parameters()))

@@ -123,14 +123,14 @@ def _batches(cfg, n, seed=5):
     return out
 
 
-def _run_jax(jcfg, variables, batches):
+def _run_jax(jcfg, variables, batches, **step_flags):
     g_vars, d_vars, v_vars = variables
     g_tx, d_tx = jstate.make_optimizers(LR)
     state = jstate.init_train_state(
         jax.random.key(0), jcfg, g_tx, d_tx, vgg_variables=v_vars,
         g_variables=g_vars, d_variables=d_vars)
     step = jax_make_train_step(*jstate.make_models(jcfg), g_tx, d_tx,
-                               donate=False)
+                               donate=False, **step_flags)
     metrics, snapshots = [], []
     for batch in batches:
         state, m = step(state, jax.tree.map(jnp.asarray, batch),
@@ -145,11 +145,11 @@ def _run_jax(jcfg, variables, batches):
     return metrics, snapshots
 
 
-def _run_port(cfg, variables, batches):
+def _run_port(cfg, variables, batches, **step_flags):
     g_vars, d_vars, v_vars = variables
     state = init_train_state(cfg, CPU, lr=LR, g_variables=g_vars,
                              d_variables=d_vars, vgg_variables=v_vars)
-    step = make_train_step()
+    step = make_train_step(**step_flags)
     metrics, snapshots = [], []
     for batch in batches:
         state, m = step(state, batch_to_device(batch, CPU))
@@ -168,19 +168,18 @@ def fp32_runs():
     return _run_jax(JCFG, variables, batches), _run_port(CFG, variables, batches)
 
 
-def test_two_fp32_steps_metrics_match_jax(fp32_runs):
-    (jax_metrics, _), (port_metrics, _) = fp32_runs
+def assert_metrics_match(port_metrics, jax_metrics):
+    """The module docstring's bar for the metrics of each step."""
     for step, (got, want) in enumerate(zip(port_metrics, jax_metrics)):
         for k in METRICS:
             np.testing.assert_allclose(got[k], want[k], rtol=2e-3, atol=2e-5,
                                        err_msg=f"step {step} {k}")
 
 
-@pytest.mark.parametrize("net,share", [("generator", 1e-3),
-                                       ("discriminator", 0.0)])
-def test_two_fp32_steps_parameters_match_jax(fp32_runs, net, share):
-    (_, jax_snapshots), (_, port_snapshots) = fp32_runs
-    want, got = jax_snapshots[-1][net], port_snapshots[-1][net]
+def assert_parameters_match(got, want, share):
+    """The module docstring's bar for one network's post-update parameters
+    (state dicts): every element within 4 lr, at most `share` of them
+    further than 1% of an Adam step plus one fp32 ulp."""
     params = [k for k in got if not k.endswith(
         ("weight_u", "weight_v", "running_mean", "running_var",
          "num_batches_tracked"))]
@@ -194,11 +193,9 @@ def test_two_fp32_steps_parameters_match_jax(fp32_runs, net, share):
     assert off <= share * total, f"{off} of {total} elements off"
 
 
-@pytest.mark.parametrize("net", ["generator", "discriminator"])
-@pytest.mark.parametrize("step", [0, 1])
-def test_fp32_steps_spectral_and_batch_stats_match_jax(fp32_runs, net, step):
-    (_, jax_snapshots), (_, port_snapshots) = fp32_runs
-    want, got = jax_snapshots[step][net], port_snapshots[step][net]
+def assert_spectral_and_batch_stats_match(got, want, step):
+    """The module docstring's bar for one network's u/v and running
+    statistics after step `step` (0-based)."""
     uv = [k for k in want if k.endswith(("weight_u", "weight_v"))]
     assert uv
     for key in uv:
@@ -208,6 +205,27 @@ def test_fp32_steps_spectral_and_batch_stats_match_jax(fp32_runs, net, step):
         atol = 2e-5 if (step, key) == (1, "final_block.1.running_mean") else 1e-6
         torch.testing.assert_close(got[key], want[key], rtol=3e-4, atol=atol,
                                    msg=key)
+
+
+def test_two_fp32_steps_metrics_match_jax(fp32_runs):
+    (jax_metrics, _), (port_metrics, _) = fp32_runs
+    assert_metrics_match(port_metrics, jax_metrics)
+
+
+@pytest.mark.parametrize("net,share", [("generator", 1e-3),
+                                       ("discriminator", 0.0)])
+def test_two_fp32_steps_parameters_match_jax(fp32_runs, net, share):
+    (_, jax_snapshots), (_, port_snapshots) = fp32_runs
+    assert_parameters_match(port_snapshots[-1][net], jax_snapshots[-1][net],
+                            share)
+
+
+@pytest.mark.parametrize("net", ["generator", "discriminator"])
+@pytest.mark.parametrize("step", [0, 1])
+def test_fp32_steps_spectral_and_batch_stats_match_jax(fp32_runs, net, step):
+    (_, jax_snapshots), (_, port_snapshots) = fp32_runs
+    assert_spectral_and_batch_stats_match(port_snapshots[step][net],
+                                          jax_snapshots[step][net], step)
 
 
 def test_one_bf16_step_metrics_match_jax_in_band():

@@ -228,10 +228,10 @@ def test_parser_matches_jax_but_device():
 @pytest.mark.parametrize("flags,match", [
     # --fsdp names item 16 and item 13, which brought the data axis only;
     # --multihost trains (tests/test_torch_cli.py) but refuses --fsdp before
-    # it joins a process group
+    # it joins a process group. The perf modes run
+    # (tests/test_torch_perf_modes_port.py).
     (["--fsdp", "2"], "item 13"), (["--multihost", "--fsdp", "2"], "item 13"),
-    (["--fused_d"], "item 6"), (["--remat_vgg"], "item 6"),
-    (["--remat_blocks"], "item 6"), (["--fsdp", "4"], "item 16")])
+    (["--fsdp", "4"], "item 16")])
 def test_flags_of_missing_modes_raise(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(flags + ["--device", "cpu"])

@@ -7,8 +7,10 @@ A rank joins a gloo group (parallel/mesh.py::init_distributed), loads the
 initial G, D and VGG state dicts and the global batches from the spec's
 `inputs` file (torch.save), and for each run named in the spec builds the
 state, broadcasts it from rank 0, and steps its rows of every batch
-(np.array_split's contiguous share). Run "sound" is the port as it is; the
-other runs plant one fault (`FAULTS`): a global reduction made local. Each
+(np.array_split's contiguous share), with the spec's `step_flags` (the
+train step's perf modes; the config's come with the inputs). Run "sound"
+is the port as it is; the other runs plant one fault (`FAULTS`): a global
+reduction made local. Each
 run's metrics per step, the first and the last step's summed gradients, and
 the final G and D state dicts and Adam states go to
 `<out>/<run>_rank<r>.pt`. With `fid` in the
@@ -109,7 +111,9 @@ def local_batch(batch: dict, world: int, rank: int) -> dict:
 
 @contextlib.contextmanager
 def planted(fault: str):
-    """Replace one global reduction of the port with its local form."""
+    """Replace one global reduction of the port with its local form, or
+    (`recompute_unguarded`) run `remat_blocks`' recompute as a plain
+    checkpoint, which advances u/v and the running statistics again."""
     from semantic_pyramid_for_image_generation_torch.models import (
         discriminator,
         layers,
@@ -134,6 +138,9 @@ def planted(fault: str):
         "diversity_local": (losses, "all_gather_rows", local),
         "projection_local": (discriminator, "all_gather_rows", local),
         "grads_averaged": (step, "all_reduce_gradients", averaged),
+        "recompute_unguarded": (
+            layers.RecomputeGuard, "contexts",
+            lambda guard: (contextlib.nullcontext(), contextlib.nullcontext())),
     }[fault]
     original = getattr(module, name)
     setattr(module, name, replacement)
@@ -216,6 +223,46 @@ def readings_against(got: dict, ref: dict, lr: float) -> dict:
     return readings
 
 
+def step_collective_bytes(state, rows: int, world: int) -> dict:
+    """The bytes one rank all-reduces and all-gathers in one train step of
+    `rows` rows per rank (`mesh.collective_bytes`), from the config and
+    the networks' sizes:
+      * all-reduced: every G and D gradient (fp32), once; each batch
+        norm's per-channel sums and squares and the count, (2C + 1) fp32,
+        in the D phase's G forward, the G phase's forward and its backward,
+        and once more for the batch norms inside G's residual blocks when
+        `remat_blocks` recomputes them; the five metrics;
+      * all-gathered: the fakes (compute dtype) and the latents (fp32) of
+        the diversity loss over the global batch; with the (B, B, 128)
+        projection, the labels (int64) in each of D's three passes. The
+        canonical projection (`--fused_d`) gathers no labels."""
+    from torch import nn
+
+    from semantic_pyramid_for_image_generation_torch.models.layers import (
+        GeneratorResidualBlock,
+    )
+
+    g, d = state.generator, state.discriminator
+    config = g.config
+
+    def bn_sums(module):
+        return sum(4 * (2 * m.num_features + 1) for m in module.modules()
+                   if isinstance(m, nn.BatchNorm2d))
+
+    reduced = (4 * sum(p.numel() for net in (g, d) for p in net.parameters())
+               + 3 * bn_sums(g) + 4 * 5)
+    if config.remat_blocks:
+        reduced += sum(bn_sums(b) for b in g.main_path
+                       if isinstance(b, GeneratorResidualBlock))
+    total = world * rows
+    fake = config.out_channels * config.image_size ** 2 * (
+        2 if config.compute_dtype == "bfloat16" else 4)
+    gathered = total * (fake + 4 * config.latent_dim)
+    if config.compat_projection:
+        gathered += 3 * total * 8
+    return {"all_reduce": reduced, "all_gather": gathered, "broadcast": 0}
+
+
 def build_state(inputs: dict, device: torch.device):
     from semantic_pyramid_for_image_generation_torch.config import (
         PyramidGANConfig,
@@ -231,16 +278,18 @@ def build_state(inputs: dict, device: torch.device):
     return state
 
 
-def step_run(state, batches, device, world: int, rank: int) -> dict:
-    """Step this rank's rows of each global batch: the metrics per step and
-    the first step's gradients (their inputs are the same on every rank
-    and in one process, so only summation order separates them)."""
+def step_run(state, batches, device, world: int, rank: int,
+             **step_flags) -> dict:
+    """Step this rank's rows of each global batch with `make_train_step(
+    **step_flags)`: the metrics per step and the first step's gradients
+    (their inputs are the same on every rank and in one process, so only
+    summation order separates them)."""
     from semantic_pyramid_for_image_generation_torch.train.step import (
         batch_to_device,
         make_train_step,
     )
 
-    step = make_train_step()
+    step = make_train_step(**step_flags)
     out = {"metrics": []}
     for batch in batches:
         state, m = step(state, batch_to_device(
@@ -313,7 +362,8 @@ def main(spec_path: str) -> int:
         mesh.broadcast_state(state)
         mesh.reset_collective_bytes()
         with planted(run):
-            result = step_run(state, inputs["batches"], device, world, rank)
+            result = step_run(state, inputs["batches"], device, world, rank,
+                              **spec.get("step_flags", {}))
         result.update(snapshot(state), last_grads=gradients(state),
                       collective_bytes=dict(mesh.collective_bytes))
         torch.save(result, out / f"{run}_rank{rank}.pt")
