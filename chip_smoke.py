@@ -117,18 +117,25 @@ Phases; any failure raises and exits non-zero, before the result lines:
     projection alone (what --fused_d implies), each mode alone and all
     three; median ms and spread, peak GiB; launch counters are reset before
     (a) and each step must move them by its mode's counts
-    (PERF_MODE_LAUNCHES). (c) fp32, full width, batch 8, 2 steps from one
-    state: remat_vgg, remat_blocks and both against the default step
-    (metrics, G's and D's parameters, every u/v, every running statistic),
-    each limit the larger of a floor and 6x the witness (the default step
-    run again); remat_blocks with its recompute guard off must break the
-    hold. (d) fused_d against the separate passes, fp32, batch 8, 3 steps
-    with spectral updates frozen (u/v untouched), witness the separate
-    passes again; with updates on, the first step's real loss. (e) The CLI
-    at full width on a JPEG Places365 tree: `--train --fused_d --remat_vgg
-    --remat_blocks`, 2 steps of 8, checkpoint_000.pt; a default-mode run
-    resumes from it and takes 2 more. (f) Two gloo ranks on cuda:0 with
-    `--fused_d --remat_blocks`, fp32, as phase 10 (b) on seed 0: the ranks
+    (tests/torch_parallel_rank.py's PERF_MODE_LAUNCHES). (c) and (d) on
+    seeds 0, 1 and 2, fp32, full width, batch 8, every reading printed
+    before any check (`readings_against`: metrics, each network's elements
+    off and first gradients, u/v, running statistics), each limit the
+    larger of a floor and 6x the seed's witness, and the sound runs'
+    largest and the faults' smallest reading per limit. (c) 2 steps:
+    remat_vgg, remat_blocks and both against the default step, witness the
+    default step again; three planted faults of remat_blocks' recompute
+    (unguarded; u/v only; the running statistics' momentum only) must each
+    break the hold. (d) fused_d against the separate passes, 3 steps with
+    spectral updates frozen (u/v untouched: limit 0), witness the separate
+    passes on each half of the batch reversed; each run also reads the
+    first step's real loss with updates on. Two planted faults of the fused
+    pass (the fakes' labels shifted a row; D's u/v advanced once more) must
+    each break it. (e) The CLI at full width on a JPEG Places365 tree:
+    `--train --fused_d --remat_vgg --remat_blocks`, bf16, 2 steps of 16, a
+    validation of 32 (sites that phase 3 holds), checkpoint_000.pt; a
+    default-mode run resumes from it and takes 2 more. (f) Two gloo ranks
+    on cuda:0 with `--fused_d --remat_blocks`, fp32, as phase 10 (b) on seed 0: the ranks
     bitwise, the hold against this process under phase 10's limits and
     witness, launches, and the bytes all-reduced and all-gathered per rank
     per step exactly as tests/torch_parallel_rank.py's
@@ -172,35 +179,9 @@ TRAIN_LAUNCHES = {  # per train step (chip_smoke phase 6)
 GENERATE_LAUNCHES = {  # per eval generate (VGG pyramid, then G)
     "pooled_kv_attention": 1, "upsample_2x": 11, "max_pool_2x2": 6,
     "max_pool_2x2_backward": 0, "upsample_2x_backward": 0}
-# the train step's perf modes (phase 11): mode -> (config fields,
-# make_train_step flags). "canonical" is the projection --fused_d implies,
-# without the fusion, so (a) shows each part of --fused_d's change.
-CANONICAL = {"compat_projection": False}
-PERF_MODES = {
-    "default": ({}, {}),
-    "canonical": (CANONICAL, {}),
-    "fused_d": (CANONICAL, {"fused_discriminator": True}),
-    "remat_vgg": ({}, {"remat_vgg": True}),
-    "remat_blocks": ({"remat_blocks": True}, {}),
-    "remat_both": ({"remat_blocks": True}, {"remat_vgg": True}),
-    "fused_d_remat_blocks": ({**CANONICAL, "remat_blocks": True},
-                             {"fused_discriminator": True}),
-    "all": ({**CANONICAL, "remat_blocks": True},
-            {"fused_discriminator": True, "remat_vgg": True}),
-}
-# launches per train step in each mode: the fused D pass drops one D
-# attention, its KV pool and that pool's backward; remat_vgg re-runs the
-# VGG's 5 pools on the fakes; remat_blocks the 2 upsamples of each of G's 5
-# blocks in the G phase (the D phase's G forward keeps no graph)
-PERF_MODE_LAUNCHES = {
-    mode: dict(zip(TRAIN_LAUNCHES, counts)) for mode, counts in {
-        "default": (5, 22, 30, 14, 11), "canonical": (5, 22, 30, 14, 11),
-        "fused_d": (4, 22, 29, 13, 11), "remat_vgg": (5, 22, 35, 14, 11),
-        "remat_blocks": (5, 32, 30, 14, 11), "remat_both": (5, 32, 35, 14, 11),
-        "fused_d_remat_blocks": (4, 32, 29, 13, 11),
-        "all": (4, 32, 34, 13, 11),
-    }.items()}
-EVAL_BATCHES = (2 * BATCH, 49)  # validation generates, the 7x7 grid
+# the train step's perf modes (phase 11), their config fields, make_train_step
+# flags and launches per step: tests/torch_parallel_rank.py's PERF_MODES and
+# PERF_MODE_LAUNCHES (`parallel_helpers()`), which the CPU tests use
 TRAINER_STEPS = 4  # phase 7: training batches of BATCH
 VALIDATION_BATCHES = 2  # phase 7: validation batches of 2 * BATCH
 
@@ -385,20 +366,37 @@ def upsample_backward_sites(dtype, batch=BATCH):
             for b, c, h, w in upsample_shapes(dtype, batch)]
 
 
+def generate_batches():
+    """Rows of every generate the smoke's Trainers run: phase 7's validation
+    at 2 x 16 and 11 (e)'s CLI validation at 2 x its batch, the 7x7 grid."""
+    return sorted({2 * BATCH, 2 * PM_CLI_BATCH, 49})
+
+
 def train_site_batches():
     """(rows, dtype) of every train step the smoke drives: phases 6 and 7 at
-    16 rows, phase 6's peak-memory step and 10 (d) at 64 in bf16, and a rank
-    of 10 (a) at 32 in bf16 and of 10 (b) at 8 in fp32."""
-    return [(BATCH, torch.bfloat16), (BATCH, torch.float32),
-            (NCCL_BATCH, torch.bfloat16),
-            (DP_BF16_BATCH // DP_WORLD, torch.bfloat16),
-            (DP_FP32_BATCH // DP_WORLD, torch.float32)]
+    16 rows (bf16 and fp32), phase 6's peak-memory step and 10 (d) at 64 in
+    bf16, a rank of 10 (a) at 32 in bf16 and of 10 (b) at 8 in fp32, the
+    one-process reference of 10 (b) at 16 in fp32; phase 11 (a) at 64 in
+    bf16, (c) and (d) at 8 in fp32, (e)'s CLI in bf16 at its batch."""
+    return list(dict.fromkeys([
+        (BATCH, torch.bfloat16), (BATCH, torch.float32),
+        (NCCL_BATCH, torch.bfloat16),
+        (DP_BF16_BATCH // DP_WORLD, torch.bfloat16),
+        (DP_FP32_BATCH // DP_WORLD, torch.float32),
+        (DP_FP32_BATCH, torch.float32),
+        (PM_BATCH, torch.bfloat16), (PM_FP32_BATCH, torch.float32),
+        (PM_CLI_BATCH, torch.bfloat16)]))
 
 
 def fused_d_site_batches():
-    """(rows, dtype) of D's fused pass in phase 11: 2 x 64 rows in bf16
-    ((a)), 2 x 8 in fp32 ((c), (d))."""
-    return [(2 * PM_BATCH, torch.bfloat16), (2 * PM_FP32_BATCH, torch.float32)]
+    """(rows, dtype) of every fused D pass of phase 11 (2B rows): (a) at 2 x
+    64 in bf16, (d) at 2 x 8 in fp32, (e)'s CLI at 2 x its batch in bf16,
+    (f)'s ranks at 2 x 8 and its one-process reference at 2 x 16 in fp32."""
+    return list(dict.fromkeys([
+        (2 * PM_BATCH, torch.bfloat16), (2 * PM_FP32_BATCH, torch.float32),
+        (2 * PM_CLI_BATCH, torch.bfloat16),
+        (2 * (DP_FP32_BATCH // DP_WORLD), torch.float32),
+        (2 * DP_FP32_BATCH, torch.float32)]))
 
 
 def tie_heavy(shape, dtype, g):
@@ -594,9 +592,9 @@ def check_kernels(device) -> dict:
         print(f"  {name} {what}, {len(sites)} sites: max_abs_err "
               f"{worst:.3g} ok", flush=True)
 
-    # the Trainer's generates: validation at 2 x BATCH rows, the grid at 49
+    # the Trainers' generates: validation batches, the grid at 49
     for name in ("pooled_kv_attention", "max_pool_2x2", "upsample_2x"):
-        for batch in EVAL_BATCHES:
+        for batch in generate_batches():
             for dtype in DTYPES:
                 hold(name, specs[name]["sites"](dtype, batch),
                      f"{str(dtype)[6:]} generate batch {batch}")
@@ -1897,7 +1895,7 @@ def dp_reference(device, workdir: str, seed: int,
     )
 
     h = parallel_helpers()
-    fields, flags = PERF_MODES[mode]
+    fields, flags = h.PERF_MODES[mode]
     config = PyramidGANConfig(compute_dtype="float32", **fields)
     state = init_train_state(config, device, lr=LR, seed=seed)
     for net in (state.generator, state.discriminator):
@@ -2007,7 +2005,7 @@ def dp_fp32_runs(device, workdir: str, mode: str = "default",
     )
 
     h = parallel_helpers()
-    fields, flags = PERF_MODES[mode]
+    fields, flags = h.PERF_MODES[mode]
     state = init_train_state(PyramidGANConfig(compute_dtype="float32",
                                               **fields), device, lr=LR)
     rows = mesh.shard_slice(DP_FP32_BATCH, DP_WORLD, mesh.rank())
@@ -2268,20 +2266,39 @@ PM_STEPS = 6  # (a): 1 warm-up + 5 timed
 PM_FP32_BATCH = 8  # (c), (d): full-width fp32 holds
 PM_HOLD_STEPS = 2  # (c)
 PM_FUSED_STEPS = 3  # (d), as the JAX package's own claim runs it
-PM_CLI_BATCH = 8  # (e): two steps of 8 rows
+PM_SEEDS = (SEED, SEED + 1, SEED + 2)  # (c) and (d) run on each
+PM_REMAT_MODES = ("remat_vgg", "remat_blocks", "remat_both")  # (c)
+PM_REMAT_FAULTS = ("recompute_unguarded", "recompute_uv_unguarded",
+                   "recompute_bn_twice")  # (c), planted in remat_blocks
+PM_FUSED_FAULTS = ("fused_labels_shifted", "fused_uv_advanced")  # (d)
+PM_CLI_BATCH = BATCH  # (e): two steps of 16 rows
 PM_GLOO_MODE = "fused_d_remat_blocks"  # (f)
 # (c) and (d): each limit is the larger of its floor here and
-# PM_WITNESS_FACTOR times the witness's reading (the same step run twice
-# from the same state: the card's fp32 step is not bitwise from run to
-# run). uv: the largest |difference| of a u/v element (unit vectors); bn:
-# the largest |difference| of a running statistic over that tensor's
-# largest |value|. The bn floor leaves room for the final BN's running
-# mean, which averages the output of biases whose gradient is zero in
-# exact arithmetic, so that their Adam steps go +-lr either way
-# (tests/test_torch_train_step.py): 2.6e-5 in (d) at tiny width on the CPU.
-# The unguarded recompute reads ~0.5 there.
-PM_LIMITS = {"metrics": 1e-4, "generator_off": 1e-3, "discriminator_off": 1e-3,
-             "uv": 1e-5, "bn": 1e-3}
+# PM_WITNESS_FACTOR times the seed's witness reading (`readings_against`:
+# metrics, the share of each network's elements off, the first gradients,
+# u/v, the running statistics). (c)'s witness is the default step run
+# again (the remat modes run the same arithmetic; the card's fp32 step is
+# not bitwise from run to run); (d)'s is the separate passes on each half
+# of the batch reversed (the same arithmetic in another summation order,
+# as phase 10's). (d) adds `real_loss`: the first step's real loss with
+# spectral updates on, relative to the separate passes'; its u/v must be
+# untouched (limit 0). Each floor sits near the geometric middle between
+# the sound runs' largest reading and the smallest reading of the planted
+# faults above them, over seeds 0-2 in three runs on the H100 (PERF.md, PR
+# 8): (c) sound <= 5.8e-7 / 3.9e-4 / 1.8e-7 / 9.4e-7 / 1.1e-8 / 0 / 2.9e-7 /
+# 7.3e-5 in the order below, faults >= 0.048 / 0.056 / 0.27 / 0.0082 /
+# 0.0032 / (none) / 0.076 / 0.0013; (d) sound <= 3.3e-6 / 7.1e-4 / 1.7e-4 /
+# 3.6e-6 / 1.2e-5 / 3e-7 / 0 / 8.3e-4 / 0, faults >= 0.041 / - / 0.021 / - /
+# 5.2e-5 / 4.1e-4 / 0.070 / - / 1.8e-5 ("-": no fault moves it past the
+# sound runs; its floor sits above them and the witness sets the limit).
+PM_REMAT_LIMITS = {"metrics": 1e-4, "generator_off": 4e-3,
+                   "discriminator_off": 1e-3, "generator_grads": 1e-4,
+                   "discriminator_grads": 1e-5, "embedding_grads": 1e-5,
+                   "uv": 1e-4, "bn": 3e-4}
+PM_FUSED_LIMITS = {"metrics": 3e-4, "generator_off": 1e-3,
+                   "discriminator_off": 2e-3, "generator_grads": 1e-4,
+                   "discriminator_grads": 3e-5, "embedding_grads": 1e-5,
+                   "uv": 0.0, "bn": 2e-3, "real_loss": 3e-6}
 PM_WITNESS_FACTOR = DP_WITNESS_FACTOR
 
 
@@ -2289,7 +2306,7 @@ def set_perf_mode(state, mode: str) -> dict:
     """Give `state`'s G and D the config fields of perf mode `mode` (the
     forward reads `compat_projection` and `remat_blocks` at each call) and
     return its make_train_step flags."""
-    fields, flags = PERF_MODES[mode]
+    fields, flags = parallel_helpers().PERF_MODES[mode]
     config = dataclasses.replace(state.generator.config, **{
         "compat_projection": True, "remat_blocks": False, **fields})
     state.generator.config = state.discriminator.config = config
@@ -2309,13 +2326,10 @@ def reset_state(state, initial: dict) -> None:
     state.step = 0
 
 
-def pinned_batches(config, batch: int, n: int, device, seed: int = SEED):
-    """`n` synthetic batches with pinned latents, on the card."""
+def pinned_batches(config, batch: int, n: int, seed: int = SEED):
+    """`n` synthetic numpy batches with pinned latents."""
     from semantic_pyramid_for_image_generation_torch.data.synthetic import (
         synthetic_batch,
-    )
-    from semantic_pyramid_for_image_generation_torch.train.step import (
-        batch_to_device,
     )
 
     rng = np.random.default_rng(seed + 20)
@@ -2325,7 +2339,7 @@ def pinned_batches(config, batch: int, n: int, device, seed: int = SEED):
         for key in ("noise_d", "noise_g"):
             b[key] = rng.standard_normal(
                 (batch, config.latent_dim)).astype(np.float32)
-        out.append(batch_to_device(b, device))
+        out.append(b)
     return out
 
 
@@ -2338,6 +2352,7 @@ def drive_perf_modes(device, card: str) -> dict:
         make_train_step,
     )
 
+    launches = parallel_helpers().PERF_MODE_LAUNCHES
     state = trainer_state(device)
     initial = {net: {k: v.clone() for k, v in
                      getattr(state, net).state_dict().items()}
@@ -2362,9 +2377,9 @@ def drive_perf_modes(device, card: str) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
             after = kernels.launch_counts()
             delta = {k: after[k] - before[k] for k in after}
-            if delta != PERF_MODE_LAUNCHES[mode]:
+            if delta != launches[mode]:
                 raise AssertionError(f"(a) {mode}: launches per step {delta}, "
-                                     f"expected {PERF_MODE_LAUNCHES[mode]}")
+                                     f"expected {launches[mode]}")
             values = {k: float(v) for k, v in metrics.items()}
             if not all(np.isfinite(v) for v in values.values()):
                 raise AssertionError(f"(a) {mode}: non-finite losses {values}")
@@ -2388,41 +2403,8 @@ def drive_perf_modes(device, card: str) -> dict:
     return {"launches": counts, "per_step": per_step, "results": results}
 
 
-def pm_readings(got: dict, ref: dict) -> dict:
-    """A run's readings against a reference run (`pm_run`s), under the
-    names of PM_LIMITS: the worst relative metric error; the share of G's
-    and of D's parameter elements further than 1% of an Adam step plus one
-    fp32 ulp; the largest u/v error; the worst running-statistics error
-    relative to its tensor's largest value."""
-    readings = {"metrics": max(
-        abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
-        for g, w in zip(got["metrics"], ref["metrics"]) for k in w),
-        "uv": 0.0, "bn": 0.0}
-    for net in ("generator", "discriminator"):
-        off = total = 0
-        for key, want in ref[net].items():
-            if not want.is_floating_point():
-                continue
-            err = (got[net][key] - want).abs()
-            if key.endswith(("weight_u", "weight_v")):
-                readings["uv"] = max(readings["uv"], float(err.max()))
-            elif key.endswith(("running_mean", "running_var")):
-                readings["bn"] = max(readings["bn"], float(err.max()) / max(
-                    float(want.abs().max()), 1e-30))
-            else:
-                off += int((err > 1e-2 * LR + 2.0 ** -22 * want.abs()).sum())
-                total += err.numel()
-        readings[f"{net}_off"] = off / total
-    return readings
-
-
-def pm_limits(witness: dict) -> dict:
-    return {k: max(floor, PM_WITNESS_FACTOR * witness[k])
-            for k, floor in PM_LIMITS.items()}
-
-
-def fp32_hold_state(device):
-    """A full-width fp32 state from SEED, u/v advanced 10 iterations, and
+def fp32_hold_state(device, seed: int):
+    """A full-width fp32 state from `seed`, u/v advanced 10 iterations, and
     a copy of its G and D state dicts on the card."""
     from semantic_pyramid_for_image_generation_torch.config import (
         PyramidGANConfig,
@@ -2435,7 +2417,7 @@ def fp32_hold_state(device):
     )
 
     state = init_train_state(PyramidGANConfig(compute_dtype="float32"),
-                             device, lr=LR, seed=SEED)
+                             device, lr=LR, seed=seed)
     for net in (state.generator, state.discriminator):
         advance_spectral_norm_(net, 10)
     initial = {net: {k: v.clone() for k, v in
@@ -2446,93 +2428,134 @@ def fp32_hold_state(device):
 
 def pm_run(state, initial: dict, batches, mode: str,
            spectral_update: bool = True) -> dict:
-    """`state` from `initial` through `batches` in perf mode `mode`."""
+    """`state` from `initial` through the numpy `batches` in perf mode
+    `mode`: the metrics per step, the first step's gradients, G and D."""
     from semantic_pyramid_for_image_generation_torch.train.step import (
+        batch_to_device,
         make_train_step,
     )
 
+    h = parallel_helpers()
+    device = next(state.generator.parameters()).device
     step = make_train_step(spectral_update=spectral_update,
                            **set_perf_mode(state, mode))
     reset_state(state, initial)
     run = {"metrics": []}
     for batch in batches:
-        _, m = step(state, batch)
+        _, m = step(state, batch_to_device(batch, device))
         run["metrics"].append({k: float(v) for k, v in m.items()})
+        run.setdefault("grads", h.gradients(state))
     for net in ("generator", "discriminator"):
-        run[net] = parallel_helpers().to_cpu(getattr(state, net).state_dict())
+        run[net] = h.to_cpu(getattr(state, net).state_dict())
     return run
 
 
-def check_remat_holds(device, card: str) -> None:
-    """(c) fp32, full width, batch 8, 2 steps with spectral updates from one
-    state: remat_vgg, remat_blocks and both against the default step, each
-    within its limit; the witness is the default step run again; the
-    planted fault (remat_blocks recomputed without its guard: u/v advanced
-    twice, the running statistics' momentum taken twice) must break the
-    hold."""
+def remat_readings(state, initial: dict, batches) -> dict:
+    """(c) on one seed: the witness (the default step again), each remat
+    mode and each planted recompute fault, against the default step."""
     h = parallel_helpers()
-    state, initial = fp32_hold_state(device)
-    batches = pinned_batches(state.generator.config, PM_FP32_BATCH,
-                             PM_HOLD_STEPS, device)
     ref = pm_run(state, initial, batches, "default")
-    witness = pm_readings(pm_run(state, initial, batches, "default"), ref)
-    limits = pm_limits(witness)
-    print(f"  (c) {card}: fp32 batch {PM_FP32_BATCH}, {PM_HOLD_STEPS} steps "
-          f"against the default step; witness (the default step again) "
-          f"{witness}; limits, the larger of {PM_LIMITS} and "
-          f"{PM_WITNESS_FACTOR}x the witness: {limits}", flush=True)
-    for mode in ("remat_vgg", "remat_blocks", "remat_both"):
-        readings = pm_readings(pm_run(state, initial, batches, mode), ref)
-        print(f"  (c) {mode}: {readings}", flush=True)
-        if broken(readings, limits):
-            raise AssertionError(f"(c) {mode} breaks {broken(readings, limits)}")
-    with h.planted("recompute_unguarded"):
-        readings = pm_readings(pm_run(state, initial, batches, "remat_blocks"),
-                               ref)
-    print(f"  (c) planted: remat_blocks without the recompute guard breaks "
-          f"{broken(readings, limits)}; readings {readings}", flush=True)
-    if not broken(readings, limits):
-        raise AssertionError("(c) the hold missed the unguarded recompute")
-    set_perf_mode(state, "default")
-    del state, initial, batches
-    torch.cuda.empty_cache()
+    out = {"witness": h.readings_against(
+        pm_run(state, initial, batches, "default"), ref, LR)}
+    for mode in PM_REMAT_MODES:
+        out[mode] = h.readings_against(pm_run(state, initial, batches, mode),
+                                       ref, LR)
+    for fault in PM_REMAT_FAULTS:
+        with h.planted(fault):
+            out[fault] = h.readings_against(
+                pm_run(state, initial, batches, "remat_blocks"), ref, LR)
+    return out
 
 
-def check_fused_d(device, card: str) -> None:
-    """(d) fp32, full width, batch 8, canonical projection: fused_d against
-    the separate passes over 3 steps with spectral updates frozen (u/v
-    untouched in both), within the limits of its witness (the separate
-    passes again); with updates on, the first step's real loss, whose pass
-    sees the same u/v in both modes."""
-    state, initial = fp32_hold_state(device)
-    batches = pinned_batches(state.generator.config, PM_FP32_BATCH,
-                             PM_FUSED_STEPS, device, seed=SEED + 1)
+def fused_readings(state, initial: dict, batches) -> dict:
+    """(d) on one seed: the witness (the separate passes on each half of
+    every batch reversed), fused_d and each planted fused-pass fault,
+    against the separate passes, all with spectral updates frozen; each
+    with `real_loss`, its first step's real loss with updates on against
+    the separate passes'."""
+    h = parallel_helpers()
+
+    def real_loss(mode, rows):
+        return pm_run(state, initial, [rows(batches[0])], mode)["metrics"][
+            0]["loss_discriminator_real"]
+
     ref = pm_run(state, initial, batches, "canonical", spectral_update=False)
-    witness = pm_readings(pm_run(state, initial, batches, "canonical",
-                                 spectral_update=False), ref)
-    limits = pm_limits(witness)
-    fused = pm_run(state, initial, batches, "fused_d", spectral_update=False)
-    readings = pm_readings(fused, ref)
-    frozen = all(torch.equal(run[net][k], initial[net][k].cpu())
-                 for run in (ref, fused) for net in ("generator",
-                                                     "discriminator")
-                 for k in initial[net] if k.endswith(("weight_u", "weight_v")))
-    real = [pm_run(state, initial, batches[:1], mode)["metrics"][0][
-        "loss_discriminator_real"] for mode in ("canonical", "fused_d")]
-    real_err = abs(real[1] - real[0]) / abs(real[0])
-    print(f"  (d) {card}: fp32 batch {PM_FP32_BATCH}, canonical projection, "
-          f"spectral updates frozen, {PM_FUSED_STEPS} steps: fused_d against "
-          f"the separate passes {readings}; witness {witness}; limits "
-          f"{limits}; u/v untouched in both: {frozen}. Spectral updates on, "
-          f"first step's real loss: relative difference {real_err:.3g} "
-          f"(limit {limits['metrics']:.3g})", flush=True)
-    if broken(readings, limits) or not frozen or real_err > limits["metrics"]:
-        raise AssertionError(f"(d) fused_d disagrees with the separate "
-                             f"passes: {broken(readings, limits)}, frozen "
-                             f"{frozen}, real loss {real_err:.3g}")
-    set_perf_mode(state, "default")
-    del state, initial, batches
-    torch.cuda.empty_cache()
+    untouched = all(torch.equal(ref[net][k], initial[net][k].cpu())
+                    for net in ("generator", "discriminator")
+                    for k in initial[net] if k.endswith(("weight_u",
+                                                         "weight_v")))
+    if not untouched:
+        raise AssertionError("(d) the separate passes moved u/v with "
+                             "spectral updates frozen")
+    ref_real = real_loss("canonical", lambda b: b)
+    runs = {"witness": ("canonical", reversed_halves, "sound"),
+            "fused_d": ("fused_d", lambda b: b, "sound")}
+    runs.update({f: ("fused_d", lambda b: b, f) for f in PM_FUSED_FAULTS})
+    out = {}
+    for name, (mode, rows, fault) in runs.items():
+        with h.planted(fault):
+            got = pm_run(state, initial, [rows(b) for b in batches], mode,
+                         spectral_update=False)
+            real = real_loss(mode, rows)
+        out[name] = h.readings_against(got, ref, LR)
+        out[name]["real_loss"] = abs(real - ref_real) / abs(ref_real)
+    return out
+
+
+def limits_of(floors: dict, witness: dict) -> dict:
+    return {k: max(floor, PM_WITNESS_FACTOR * witness[k])
+            for k, floor in floors.items()}
+
+
+def check_perf_mode_holds(device, card: str) -> None:
+    """(c) and (d) on each seed of PM_SEEDS, every reading printed before
+    any check: each sound run (the remat modes; fused_d) within its seed's
+    limits, each planted fault breaking them on every seed. Then, per
+    limit, the sound runs' largest reading and the smallest of the faults'
+    readings above it: a floor between the two separates them."""
+    parts = {"c": (remat_readings, PM_HOLD_STEPS, PM_REMAT_LIMITS,
+                   PM_REMAT_MODES, PM_REMAT_FAULTS),
+             "d": (fused_readings, PM_FUSED_STEPS, PM_FUSED_LIMITS,
+                   ("fused_d",), PM_FUSED_FAULTS)}
+    failures, seen = [], {part: [] for part in parts}
+    for seed in PM_SEEDS:
+        state, initial = fp32_hold_state(device, seed)
+        batches = pinned_batches(state.generator.config, PM_FP32_BATCH,
+                                 PM_FUSED_STEPS, seed)
+        for part, (readings_of, steps, floors, sound, faults) in parts.items():
+            readings = readings_of(state, initial, batches[:steps])
+            limits = limits_of(floors, readings["witness"])
+            print(f"  ({part}) {card}: seed {seed}, fp32 batch "
+                  f"{PM_FP32_BATCH}, {steps} steps; limits {fmt(limits)}",
+                  flush=True)
+            for name, r in readings.items():
+                over = broken(r, limits)
+                print(f"    {name}: {fmt(r)}; over {over}", flush=True)
+                if name in sound and over:
+                    failures.append(f"({part}) seed {seed}: {name} breaks "
+                                    f"{over}")
+                if name in faults and not over:
+                    failures.append(f"({part}) seed {seed}: the hold missed "
+                                    f"{name}")
+                seen[part].append((name, r))
+        set_perf_mode(state, "default")
+        del state, initial
+        torch.cuda.empty_cache()
+    for part, (_, _, floors, sound, faults) in parts.items():
+        for k, floor in floors.items():
+            top = max(r[k] for name, r in seen[part] if name in sound)
+            above = [r[k] for name, r in seen[part]
+                     if name in faults and r[k] > top]
+            print(f"  ({part}) {k}: sound runs <= {top:.3g}, faults above "
+                  f"them >= {min(above, default=float('nan')):.3g} "
+                  f"({len(above)} of {len(PM_SEEDS) * len(faults)}), floor "
+                  f"{floor:.3g}", flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def fmt(readings: dict) -> str:
+    return "{" + ", ".join(f"{k}: {v:.3g}" for k, v in readings.items()) + "}"
 
 
 def write_places_tree(root: str, n_train: int, n_val: int) -> None:
@@ -2558,10 +2581,12 @@ def write_places_tree(root: str, n_train: int, n_val: int) -> None:
 
 def drive_perf_mode_cli(device, card: str) -> None:
     """(e) cli/main.py at full width on a JPEG Places365 tree: `--train
-    --fused_d --remat_vgg --remat_blocks` takes 2 steps of 8 and writes
+    --fused_d --remat_vgg --remat_blocks` takes 2 steps of PM_CLI_BATCH in
+    bf16, validates on one batch of twice that and writes
     checkpoint_000.pt; a default-mode run resumes from it with
     --load_checkpoint and takes 2 more. Each run's backward launches are 2
-    steps of its mode's (its generates launch none)."""
+    steps of its mode's (its generates launch none). Phase 3 holds the
+    kernels at these train, fused-D and generate sites."""
     import contextlib
     import glob
     import io
@@ -2573,13 +2598,14 @@ def drive_perf_mode_cli(device, card: str) -> None:
     from semantic_pyramid_for_image_generation_torch.cli import main as cli
     from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
 
+    launches = parallel_helpers().PERF_MODE_LAUNCHES
     workdir = tempfile.mkdtemp(prefix="chip_smoke_perf_cli_")
     try:
         root = os.path.join(workdir, "places")
-        write_places_tree(root, 2 * PM_CLI_BATCH, PM_CLI_BATCH)
+        write_places_tree(root, 2 * PM_CLI_BATCH, 2 * PM_CLI_BATCH)
         common = ["--train", "--device", str(device), "--epochs", "1",
                   "--batch_size", str(PM_CLI_BATCH), "--path_to_places365", root,
-                  "--fid_images", str(PM_CLI_BATCH), "--num_workers", "4",
+                  "--fid_images", str(2 * PM_CLI_BATCH), "--num_workers", "4",
                   "--allow_random_fid", "--fid_device_stats",
                   "--validate_after_n_iterations", "1000000", "--log_every",
                   "1", "--load_pretrained_vgg16", ""]
@@ -2614,7 +2640,7 @@ def drive_perf_mode_cli(device, card: str) -> None:
             losses = np.load(os.path.join(metrics, "loss_generator.npy"))
             want_step = 2 * len(summary) + 2
             for name in ("max_pool_2x2_backward", "upsample_2x_backward"):
-                if counts[name] != 2 * PERF_MODE_LAUNCHES[mode][name]:
+                if counts[name] != 2 * launches[mode][name]:
                     raise AssertionError(f"(e) {mode}: {name} launched "
                                          f"{counts[name]} times")
             if saved["step"] != want_step or len(losses) != 2 or \
@@ -2712,7 +2738,7 @@ def drive_perf_mode_ranks(device, card: str) -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     config = PyramidGANConfig(compute_dtype="float32",
-                              **PERF_MODES[PM_GLOO_MODE][0])
+                              **h.PERF_MODES[PM_GLOO_MODE][0])
     with torch.device("meta"):
         nets = types.SimpleNamespace(generator=Generator(config),
                                      discriminator=Discriminator(config))
@@ -2720,7 +2746,7 @@ def drive_perf_mode_ranks(device, card: str) -> None:
                                        DP_WORLD)
     want_bytes = {k: DP_FP32_STEPS * v for k, v in per_step.items()}
     want_launches = {k: DP_FP32_STEPS * v for k, v in
-                     PERF_MODE_LAUNCHES[PM_GLOO_MODE].items()}
+                     h.PERF_MODE_LAUNCHES[PM_GLOO_MODE].items()}
     limits = {k: max(floor, DP_WITNESS_FACTOR * witness[k])
               for k, floor in DP_LIMITS.items()}
     readings = ranks[0]["readings"]
@@ -2842,8 +2868,7 @@ def main() -> int:
         kernels[name]["perf_mode_launches"] = count
         kernels[name]["perf_mode_launches_per_step"] = {
             mode: delta[name] for mode, delta in perf["per_step"].items()}
-    check_remat_holds(device, card)
-    check_fused_d(device, card)
+    check_perf_mode_holds(device, card)
     drive_perf_mode_cli(device, card)
     drive_perf_mode_ranks(device, card)
     print(f"  phase 11 took {time.perf_counter() - start:.1f} s", flush=True)

@@ -76,6 +76,18 @@ def batch_to_device(batch: Mapping[str, Any], device: torch.device) -> Batch:
     return out
 
 
+def discriminate_fused(discriminator: torch.nn.Module, images: torch.Tensor,
+                       fake: torch.Tensor, labels: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """D's scores of the real and the fake rows from one pass over real ++
+    fake (2B rows), each half with the batch's labels: one advance of D's
+    u/v where the separate passes take two."""
+    b = images.shape[0]
+    pred = discriminator(torch.cat([images.to(fake.dtype), fake]),
+                         torch.cat([labels, labels]))
+    return pred[:b], pred[b:]
+
+
 def make_train_step(w_rec: float = DEFAULT_W_REC,
                     w_div: float = DEFAULT_W_DIV,
                     remat_vgg: bool = False,
@@ -166,10 +178,8 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
             with torch.no_grad():
                 fake_d = generator(noise_d, features_real, masks, labels)
             if fused_discriminator:
-                pred = discriminator(
-                    torch.cat([images.to(fake_d.dtype), fake_d]),
-                    torch.cat([labels, labels]))
-                pred_real, pred_fake = pred[:b], pred[b:]
+                pred_real, pred_fake = discriminate_fused(
+                    discriminator, images, fake_d, labels)
             else:
                 pred_real = discriminator(images, labels)
                 pred_fake = discriminator(fake_d, labels)

@@ -27,20 +27,14 @@ from test_torch_train_step import (
     assert_parameters_match,
     assert_spectral_and_batch_stats_match,
 )
-
-# mode -> (config fields, make_train_step flags), the same on both sides
-MODES = {
-    "fused_d": ({"compat_projection": False}, {"fused_discriminator": True}),
-    "remat_vgg": ({}, {"remat_vgg": True}),
-    "remat_blocks": ({"remat_blocks": True}, {}),
-    "remat_both": ({"remat_blocks": True}, {"remat_vgg": True}),
-}
+from torch_parallel_rank import PERF_MODES
 
 
 def mode_runs(mode: str):
     """((JAX metrics, snapshots), (port metrics, snapshots)) of two fp32
-    steps in `mode`."""
-    fields, flags = MODES[mode]
+    steps in `mode` (the same config fields and step flags on both sides,
+    tests/torch_parallel_rank.py's PERF_MODES)."""
+    fields, flags = PERF_MODES[mode]
     cfg = dataclasses.replace(CFG, **fields)
     jcfg = dataclasses.replace(JCFG, **fields)
     variables = _variables(cfg)

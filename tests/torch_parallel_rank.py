@@ -20,8 +20,9 @@ the ranks run `mesh.check_replicated` on equal states, then with rank 1's
 G changed by one ulp, and write what each raised to
 `<out>/replicated_rank<r>.pt`.
 
-The planted faults, the readings and the row helpers here are also the
-ones chip_smoke.py's data-parallel phase holds the ranks on the card with.
+The planted faults, the readings, the row helpers and the table of the
+train step's perf modes with their kernel launches here are also the ones
+chip_smoke.py holds the ranks and the modes on the card with.
 Imports torch, numpy and the port only: it runs on a host without JAX.
 """
 
@@ -43,6 +44,39 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 WORKER = str(Path(__file__).resolve())
 FAULTS = ("bn_local", "diversity_local", "projection_local", "grads_averaged")
+
+# the train step's perf modes: mode -> (config fields, make_train_step
+# flags). "canonical" is the projection --fused_d implies, without the
+# fusion.
+CANONICAL = {"compat_projection": False}
+PERF_MODES = {
+    "default": ({}, {}),
+    "canonical": (CANONICAL, {}),
+    "fused_d": (CANONICAL, {"fused_discriminator": True}),
+    "remat_vgg": ({}, {"remat_vgg": True}),
+    "remat_blocks": ({"remat_blocks": True}, {}),
+    "remat_both": ({"remat_blocks": True}, {"remat_vgg": True}),
+    "fused_d_remat_blocks": ({**CANONICAL, "remat_blocks": True},
+                             {"fused_discriminator": True}),
+    "all": ({**CANONICAL, "remat_blocks": True},
+            {"fused_discriminator": True, "remat_vgg": True}),
+}
+# kernel launches per train step in each mode (the wrappers of
+# ops/cuda/{attention,resize,pool}.py): the fused D pass drops one D
+# attention, its KV pool and that pool's backward; remat_vgg re-runs the
+# VGG's 5 pools on the fakes; remat_blocks the 2 upsamples of each of G's 5
+# blocks in the G phase (the D phase's G forward keeps no graph, so it
+# does not recompute)
+PERF_MODE_LAUNCHES = {
+    mode: dict(zip(("pooled_kv_attention", "upsample_2x", "max_pool_2x2",
+                    "max_pool_2x2_backward", "upsample_2x_backward"), counts))
+    for mode, counts in {
+        "default": (5, 22, 30, 14, 11), "canonical": (5, 22, 30, 14, 11),
+        "fused_d": (4, 22, 29, 13, 11), "remat_vgg": (5, 22, 35, 14, 11),
+        "remat_blocks": (5, 32, 30, 14, 11), "remat_both": (5, 32, 35, 14, 11),
+        "fused_d_remat_blocks": (4, 32, 29, 13, 11),
+        "all": (4, 32, 34, 13, 11),
+    }.items()}
 
 
 def free_port() -> int:
@@ -111,9 +145,18 @@ def local_batch(batch: dict, world: int, rank: int) -> dict:
 
 @contextlib.contextmanager
 def planted(fault: str):
-    """Replace one global reduction of the port with its local form, or
-    (`recompute_unguarded`) run `remat_blocks`' recompute as a plain
-    checkpoint, which advances u/v and the running statistics again."""
+    """Plant one fault in the port for the duration:
+      * a global reduction made local (`FAULTS`);
+      * the recompute of `remat_blocks` unguarded: `recompute_unguarded`,
+        a plain checkpoint that advances u/v and the running statistics
+        again; `recompute_uv_unguarded`, u/v only; `recompute_bn_twice`,
+        the running statistics' momentum only;
+      * the fused D pass (`fused_discriminator`) wrong: `fused_labels_shifted`
+        pairs the fakes with the labels of the next row;
+        `fused_uv_advanced` runs one power iteration of D's u/v more before
+        the pass."""
+    from torch import nn
+
     from semantic_pyramid_for_image_generation_torch.models import (
         discriminator,
         layers,
@@ -130,6 +173,27 @@ def planted(fault: str):
     def local(x):
         return x
 
+    def guarding_only(kind):
+        class Partial(layers.RecomputeGuard):
+            def __init__(self, block):
+                super().__init__(block)
+                self.stateful = [m for m in self.stateful
+                                 if isinstance(m, kind)]
+        return Partial
+
+    fused = step.discriminate_fused
+
+    def labels_shifted(d, images, fake, labels):
+        b = images.shape[0]
+        pred = d(torch.cat([images.to(fake.dtype), fake]),
+                 torch.cat([labels, labels.roll(1, 0)]))
+        return pred[:b], pred[b:]
+
+    def uv_advanced(d, images, fake, labels):
+        with torch.no_grad():
+            layers.advance_spectral_norm_(d, 1)
+        return fused(d, images, fake, labels)
+
     if fault == "sound":
         yield
         return
@@ -141,6 +205,12 @@ def planted(fault: str):
         "recompute_unguarded": (
             layers.RecomputeGuard, "contexts",
             lambda guard: (contextlib.nullcontext(), contextlib.nullcontext())),
+        "recompute_uv_unguarded": (layers, "RecomputeGuard",
+                                   guarding_only(nn.BatchNorm2d)),
+        "recompute_bn_twice": (layers, "RecomputeGuard",
+                               guarding_only(layers._SpectralNormLayer)),
+        "fused_labels_shifted": (step, "discriminate_fused", labels_shifted),
+        "fused_uv_advanced": (step, "discriminate_fused", uv_advanced),
     }[fault]
     original = getattr(module, name)
     setattr(module, name, replacement)
@@ -194,32 +264,46 @@ EMBEDDING = "embedding.weight_orig"  # the projection head's class embedding
 
 
 def readings_against(got: dict, ref: dict, lr: float) -> dict:
-    """A run's readings against the one-process run on the concatenated
-    batch (`step_run` plus `snapshot`): the worst relative metric error;
-    per network, the share of parameter elements further than 1% of an Adam
-    step plus one fp32 ulp, and the relative L2 error of the first step's
-    gradients; the relative L2 error of the projection embedding's first
-    gradient (`embedding_grads`)."""
+    """A run's readings against a reference run (state dicts under
+    "generator" and "discriminator", the metrics per step, and the first
+    step's gradients under "grads" where both runs have them): the worst
+    relative metric error; per network, the share of parameter elements
+    further than 1% of an Adam step plus one fp32 ulp and (with "grads")
+    the relative L2 error of the first step's gradients; the relative L2
+    error of the projection embedding's first gradient (`embedding_grads`);
+    the largest |difference| of a u/v element (`uv`, unit vectors); the
+    largest |difference| of a running statistic over that tensor's largest
+    |value| (`bn`)."""
     def rel(a: dict, b: dict) -> float:
         num = sum(float((a[k] - b[k]).float().square().sum()) for k in b)
         den = sum(float(b[k].float().square().sum()) for k in b)
         return (num / den) ** 0.5
 
+    grads = "grads" in got and "grads" in ref
     readings = {"metrics": max(
-        abs(g[k] - w[k]) / abs(w[k])
-        for g, w in zip(got["metrics"], ref["metrics"]) for k in w)}
+        abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+        for g, w in zip(got["metrics"], ref["metrics"]) for k in w),
+        "uv": 0.0, "bn": 0.0}
     for net in ("generator", "discriminator"):
         off = total = 0
-        for key in ref["grads"][net]:
-            want = ref[net][key]
+        for key, want in ref[net].items():
             err = (got[net][key] - want).abs()
-            off += int((err > 1e-2 * lr + 2.0 ** -22 * want.abs()).sum())
-            total += err.numel()
+            if key.endswith(("weight_u", "weight_v")):
+                readings["uv"] = max(readings["uv"], float(err.max()))
+            elif key.endswith(("running_mean", "running_var")):
+                readings["bn"] = max(readings["bn"], float(err.max()) / max(
+                    float(want.abs().max()), 1e-30))
+            elif want.is_floating_point():
+                off += int((err > 1e-2 * lr + 2.0 ** -22 * want.abs()).sum())
+                total += err.numel()
         readings[f"{net}_off"] = off / total
-        readings[f"{net}_grads"] = rel(got["grads"][net], ref["grads"][net])
-    readings["embedding_grads"] = rel(
-        {EMBEDDING: got["grads"]["discriminator"][EMBEDDING]},
-        {EMBEDDING: ref["grads"]["discriminator"][EMBEDDING]})
+        if grads:
+            readings[f"{net}_grads"] = rel(got["grads"][net],
+                                           ref["grads"][net])
+    if grads:
+        readings["embedding_grads"] = rel(
+            {EMBEDDING: got["grads"]["discriminator"][EMBEDDING]},
+            {EMBEDDING: ref["grads"]["discriminator"][EMBEDDING]})
     return readings
 
 
