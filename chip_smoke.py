@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
 the fused G/D train step, the Trainer, the VGG-16 fine-tune, data-parallel
-training and the train step's perf modes.
+training, the train step's perf modes and sharded training state.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -140,13 +140,30 @@ Phases; any failure raises and exits non-zero, before the result lines:
     witness, launches, and the bytes all-reduced and all-gathered per rank
     per step exactly as tests/torch_parallel_rank.py's
     `step_collective_bytes` works them out.
-12. The `kernels` JSON line (launches from the train path; the serving,
-    Trainer, fine-tune, rank-0 (a) and perf-mode paths' as
+12. Sharded state (`--fsdp 2`, parallel/mesh.py::shard_state): two gloo
+    ranks on cuda:0 as one (1, 2) (data, fsdp) mesh. (a) Phase 10's
+    full-width bf16 state sharded, 6 steps of 32 rows each of global
+    batches of 64: each rank's bytes of parameters and Adam moments read
+    and worked out (`sharded_state_bytes`; unsharded, 1.10 GB), memory
+    allocated before and after sharding and the peak, ms per step (median
+    of 5, spread) beside phase 10's `--fsdp 1` ranks, FSDP's all-gather
+    and reduce-scatter bytes per step counted and worked out
+    (`step_collective_bytes`), launches per step exactly phase 6's, the
+    ranks bitwise equal. (b) Phase 10 (b)'s fp32 hold on seeds 0-2 with
+    its witness and limits, and on seed 0 the four planted faults of
+    sharded state (tests/torch_parallel_rank.py's FSDP_FAULTS), each of
+    which must break it. (c) The CLI at full width in bf16, global batch 16:
+    `--multihost --fsdp 2 --train` on two gloo ranks (the rank's
+    `init_distributed` asks for gloo: NCCL puts one rank on a card)
+    trains, validates and writes checkpoint_000.pt; one process restores
+    it and trains on; the two ranks restore that file and validate.
+13. The `kernels` JSON line (launches from the train path; the serving,
+    Trainer, fine-tune, rank-0 (a), perf-mode and sharded rank-0 paths' as
     `serving_launches`, `trainer_launches`, `finetune_launches`,
     `parallel_rank_launches`, `perf_mode_launches` (with
-    `perf_mode_launches_per_step` per mode); Kernels 2 and 4 at the
-    fine-tune's sites as `finetune_batch256`), the card line again, and
-    last the device line.
+    `perf_mode_launches_per_step` per mode), `fsdp_rank_launches`;
+    Kernels 2 and 4 at the fine-tune's sites as `finetune_batch256`), the
+    card line again, and last the device line.
 
 Imports torch, numpy and the port only; needs one card and no network.
 """
@@ -368,8 +385,10 @@ def upsample_backward_sites(dtype, batch=BATCH):
 
 def generate_batches():
     """Rows of every generate the smoke's Trainers run: phase 7's validation
-    at 2 x 16 and 11 (e)'s CLI validation at 2 x its batch, the 7x7 grid."""
-    return sorted({2 * BATCH, 2 * PM_CLI_BATCH, 49})
+    at 2 x 16 and 11 (e)'s CLI validation at 2 x its batch, 12 (c)'s per
+    rank at 2 x its batch over the two ranks, the 7x7 grid."""
+    return sorted({2 * BATCH, 2 * PM_CLI_BATCH, 2 * FS_CLI_BATCH // DP_WORLD,
+                   49})
 
 
 def train_site_batches():
@@ -377,7 +396,9 @@ def train_site_batches():
     16 rows (bf16 and fp32), phase 6's peak-memory step and 10 (d) at 64 in
     bf16, a rank of 10 (a) at 32 in bf16 and of 10 (b) at 8 in fp32, the
     one-process reference of 10 (b) at 16 in fp32; phase 11 (a) at 64 in
-    bf16, (c) and (d) at 8 in fp32, (e)'s CLI in bf16 at its batch."""
+    bf16, (c) and (d) at 8 in fp32, (e)'s CLI in bf16 at its batch; a rank
+    of phase 12 (a) at 32 in bf16 and of (b) at 8 in fp32, of (c)'s CLI at
+    its batch over the two ranks in bf16."""
     return list(dict.fromkeys([
         (BATCH, torch.bfloat16), (BATCH, torch.float32),
         (NCCL_BATCH, torch.bfloat16),
@@ -385,7 +406,8 @@ def train_site_batches():
         (DP_FP32_BATCH // DP_WORLD, torch.float32),
         (DP_FP32_BATCH, torch.float32),
         (PM_BATCH, torch.bfloat16), (PM_FP32_BATCH, torch.float32),
-        (PM_CLI_BATCH, torch.bfloat16)]))
+        (PM_CLI_BATCH, torch.bfloat16),
+        (FS_CLI_BATCH // DP_WORLD, torch.bfloat16)]))
 
 
 def fused_d_site_batches():
@@ -2768,6 +2790,413 @@ def drive_perf_mode_ranks(device, card: str) -> None:
                                  f"{want_launches}")
 
 
+# --------------------------------------------------------------- phase 12 --
+
+
+FS = 2  # the fsdp axis: both ranks of a (1, 2) (data, fsdp) mesh
+FS_BF16_STEPS = 6  # (a): 1 warm-up + 5 timed, global batches of 64
+FS_CLI_BATCH = BATCH  # (c): global batch 16, 8 rows per rank
+# (b)'s runs: the sound one on each seed of DP_SEEDS, and on the first
+# tests/torch_parallel_rank.py's FSDP faults (FSDP's default mean, the
+# `inputs=` G backward, the whole leaves' gradients unsummed, Adam built
+# before sharding): every run moves ~2.6 GB a step through gloo
+FS_FAULTS = ("fsdp_grads_averaged", "inputs_backward", "whole_grads_local",
+             "adam_before_sharding")
+
+
+def fs_runs(seed: int) -> tuple:
+    return ("sound", *FS_FAULTS) if seed == DP_SEEDS[0] else ("sound",)
+
+
+def meta_nets(config):
+    """G, D and the frozen VGG of `config` on the `meta` device."""
+    import types
+
+    from semantic_pyramid_for_image_generation_torch.models.discriminator import (  # noqa: E501
+        Discriminator,
+    )
+    from semantic_pyramid_for_image_generation_torch.models.generator import (
+        Generator,
+    )
+    from semantic_pyramid_for_image_generation_torch.models.vgg16 import VGG16
+
+    with torch.device("meta"):
+        nets = types.SimpleNamespace(generator=Generator(config),
+                                     discriminator=Discriminator(config),
+                                     vgg=VGG16(config))
+    nets.vgg.requires_grad_(False)
+    return nets
+
+
+def fs_bf16_steps(device, device_mesh) -> dict:
+    """(a) on one rank: phase 10's full-width bf16 state, broadcast, then
+    sharded; FS_BF16_STEPS steps of this rank's 32 rows of global batches
+    of 64. The rank's bytes of parameters and moments, memory allocated
+    after sharding and the peak; per step ms, launches and bytes."""
+    from semantic_pyramid_for_image_generation_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.parallel import mesh
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        state_bytes,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        batch_to_device,
+        make_train_step,
+    )
+
+    rows_of = parallel_helpers().rows_of
+    state = trainer_state(device)
+    mesh.broadcast_state(state)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    mesh.shard_state(state, device_mesh)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    sharded = state_bytes(state)
+    rows = mesh.shard_slice(DP_BF16_BATCH, DP_WORLD, mesh.rank())
+    rng = np.random.default_rng(SEED)
+    batches = [batch_to_device(rows_of(synthetic_batch(
+        state.generator.config, DP_BF16_BATCH, rng), rows), device)
+        for _ in range(FS_BF16_STEPS)]
+    step = make_train_step()
+    latents = torch.Generator(device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    steps = []
+    for batch in batches:
+        launched, sent = kernels.launch_counts(), dict(mesh.collective_bytes)
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch, latents)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = kernels.launch_counts()
+        delta = {k: after[k] - launched[k] for k in after}
+        if delta != TRAIN_LAUNCHES:
+            raise AssertionError(f"rank {mesh.rank()} step launches {delta}")
+        values = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in values.values()):
+            raise AssertionError(f"non-finite losses {values}")
+        steps.append({"ms": ms, "metrics": values,
+                      "bytes": {k: mesh.collective_bytes[k] - sent[k]
+                                for k in sent}})
+    return {"steps": steps, "launches": kernels.launch_counts(),
+            "digest": mesh.state_digest(state), "bytes_sharded": sharded,
+            "bytes_after": state_bytes(state),
+            "allocated_before": before, "allocated_after": allocated,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def fs_fp32_runs(device, device_mesh, workdir: str) -> dict:
+    """(b) on one rank, for each seed of DP_SEEDS: each run of `fs_runs`
+    from the seed's initial state (dp_reference's file), sharded inside its
+    planted fault, 2 fp32 steps of this rank's 8 rows; the sound run's
+    digest, and on rank 0 each run's readings against the seed's
+    reference."""
+    import os
+
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.parallel import mesh
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        init_train_state,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        batch_to_device,
+        make_train_step,
+    )
+
+    h = parallel_helpers()
+    rows = mesh.shard_slice(DP_FP32_BATCH, DP_WORLD, mesh.rank())
+    step = make_train_step()
+    out = {}
+    for seed in DP_SEEDS:
+        inputs = torch.load(os.path.join(workdir, f"default_inputs{seed}.pt"),
+                            weights_only=False)
+        ref = torch.load(os.path.join(workdir, f"default_reference{seed}.pt"),
+                         weights_only=False) if mesh.rank() == 0 else None
+        batches = [batch_to_device(h.rows_of(b, rows), device)
+                   for b in inputs["batches"]]
+        out[seed] = {}
+        for run in fs_runs(seed):
+            state = init_train_state(PyramidGANConfig(compute_dtype="float32"),
+                                     device, lr=LR)
+            for net in ("generator", "discriminator", "vgg"):
+                getattr(state, net).load_state_dict(inputs[net])
+            mesh.broadcast_state(state)
+            got = {"metrics": []}
+            with h.planted(run):
+                mesh.shard_state(state, device_mesh)
+                for batch in batches:
+                    _, m = step(state, batch)
+                    got["metrics"].append({k: float(v) for k, v in m.items()})
+                    got.setdefault("grads", h.gradients(state))
+            out[seed][run] = {"digest": mesh.state_digest(state)
+                              if run == "sound" else None}
+            for net in ("generator", "discriminator"):
+                got[net] = h.to_cpu(getattr(state, net).state_dict())
+            if ref is not None:
+                out[seed][run]["readings"] = h.readings_against(got, ref, LR)
+            del state
+            torch.cuda.empty_cache()
+    return out
+
+
+def fs_rank(rank: int, workdir: str, port: int) -> None:
+    """One gloo rank of phase 12 (a) and (b) on cuda:0 (spawned); its
+    results to `<workdir>/fs_rank<r>.json`."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
+                      LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    from semantic_pyramid_for_image_generation_torch.parallel import mesh
+
+    device = mesh.init_distributed("cuda", backend="gloo")
+    device_mesh = mesh.make_mesh(FS, "cuda")
+    out = {"bf16": fs_bf16_steps(device, device_mesh)}
+    torch.cuda.empty_cache()
+    out["fp32"] = fs_fp32_runs(device, device_mesh, workdir)
+    with open(os.path.join(workdir, f"fs_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    mesh.shutdown_distributed()
+
+
+def drive_fsdp_ranks(device, card: str, phase10_ms: list) -> dict:
+    """(a) and (b): the fp32 references in this process (phase 10's), then
+    two spawned gloo ranks at --fsdp 2 on cuda:0."""
+    import os
+    import shutil
+    import tempfile
+
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        sharded_state_bytes,
+    )
+
+    h = parallel_helpers()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    try:
+        witness = {seed: dp_reference(device, workdir, seed)
+                   for seed in DP_SEEDS}
+        torch.cuda.empty_cache()
+        spawn_ranks(fs_rank, workdir)
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(workdir, f"fs_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    config = PyramidGANConfig(compute_dtype="bfloat16")
+    nets = meta_nets(config)
+    whole, halves = sharded_state_bytes(nets, 1), sharded_state_bytes(nets, FS)
+    per_step = h.step_collective_bytes(nets, DP_BF16_BATCH // DP_WORLD,
+                                       DP_WORLD, fsdp=FS)
+    bf16 = [r["bf16"] for r in ranks]
+    if len({r["digest"] for r in bf16}) != 1:
+        raise AssertionError("(a) the ranks' states differ after the steps")
+    for r, run in enumerate(bf16):
+        timed = [s["ms"] for s in run["steps"][1:]]
+        print(f"  (a) {card}: rank {r} at --fsdp {FS}, bf16, "
+              f"{DP_BF16_BATCH // DP_WORLD} of {DP_BF16_BATCH} rows: "
+              f"{statistics.median(timed):.2f} ms/step median of "
+              f"{len(timed)} (spread {min(timed):.2f}-{max(timed):.2f}; "
+              f"first {run['steps'][0]['ms']:.1f}; phase 10's --fsdp 1 "
+              f"ranks {[round(t, 2) for t in phase10_ms]}); parameters + "
+              f"Adam moments read {run['bytes_after']} (after sharding, "
+              f"before a step: {run['bytes_sharded']}), worked out "
+              f"{halves}, unsharded {whole} = "
+              f"{sum(whole.values()) / 1e9:.3f} GB; allocated "
+              f"{run['allocated_before'] / 2 ** 30:.3f} GiB before "
+              f"sharding, {run['allocated_after'] / 2 ** 30:.3f} GiB "
+              f"after, peak over the steps {run['peak'] / 2 ** 30:.2f} "
+              f"GiB; collective bytes per step {run['steps'][-1]['bytes']} "
+              f"(worked out {per_step}); launches per step "
+              f"{TRAIN_LAUNCHES} (all {FS_BF16_STEPS} steps exact)",
+              flush=True)
+        if run["bytes_after"] != halves:
+            raise AssertionError(f"(a) rank {r} holds {run['bytes_after']}, "
+                                 f"worked out {halves}")
+        for s in run["steps"]:
+            if s["bytes"] != per_step:
+                raise AssertionError(f"(a) rank {r} step bytes {s['bytes']}"
+                                     f", worked out {per_step}")
+    print(f"  (a) G, D, Adam moments, u/v and running statistics bitwise "
+          f"equal on both ranks (sha256 of the gathered state "
+          f"{bf16[0]['digest'][:16]}); last losses "
+          f"{bf16[0]['steps'][-1]['metrics']}. Two ranks sharing one card "
+          f"over gloo: the arithmetic and the bytes, not a multi-card speed",
+          flush=True)
+    failures = []
+    for seed in DP_SEEDS:
+        w = witness[seed]
+        limits = {k: max(floor, DP_WITNESS_FACTOR * w[k])
+                  for k, floor in DP_LIMITS.items()}
+        runs = [r["fp32"][str(seed)] for r in ranks]
+        print(f"  (b) {card}: seed {seed}, fp32, --fsdp {FS}, {DP_WORLD} "
+              f"ranks x {DP_FP32_BATCH // DP_WORLD} rows vs one process on "
+              f"the {DP_FP32_BATCH}, {DP_FP32_STEPS} steps; witness "
+              f"{fmt(w)}; limits {fmt(limits)}", flush=True)
+        for run in fs_runs(seed):
+            readings = runs[0][run]["readings"]
+            over = broken(readings, limits)
+            print(f"    {run}: {fmt(readings)}; over {over}", flush=True)
+            if run == "sound" and (over or runs[0][run]["digest"]
+                                   != runs[1][run]["digest"]):
+                failures.append(f"(b) seed {seed}: the sound ranks break "
+                                f"{over} or differ")
+            if run != "sound" and not over:
+                failures.append(f"(b) seed {seed}: the hold missed {run}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": bf16[0]["launches"]}
+
+
+def fs_cli_rank(rank: int, workdir: str, port: int) -> None:
+    """One gloo rank of (c) on cuda:0 (spawned): cli/main.py with the argv
+    in `<workdir>/argv.json`, its output and launch counts to
+    `<workdir>/cli_rank<r>.*`. The CLI joins nccl on the card; two ranks on
+    one card need gloo, so the rank's `init_distributed` asks for it."""
+    import contextlib
+    import os
+    import warnings
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
+                      LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    from semantic_pyramid_for_image_generation_torch.cli import main as cli
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.parallel import mesh
+
+    join_group = mesh.init_distributed
+    mesh.init_distributed = lambda device_type: join_group(device_type,
+                                                           backend="gloo")
+    with open(os.path.join(workdir, "argv.json")) as f:
+        argv = json.load(f)
+    kernels.reset_launch_counts()
+    with open(os.path.join(workdir, f"cli_rank{rank}.txt"), "w") as log, \
+            contextlib.redirect_stdout(log), contextlib.redirect_stderr(log), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cli.main(argv)
+    with open(os.path.join(workdir, f"cli_rank{rank}.json"), "w") as f:
+        json.dump(kernels.launch_counts(), f)
+
+
+def drive_fsdp_cli(device, card: str) -> None:
+    """(c) cli/main.py at full width in bf16 on a JPEG Places365 tree:
+    `--multihost --fsdp 2 --train` on two gloo ranks, 2 steps of
+    FS_CLI_BATCH (8 rows per rank), the validation at start of 2 x that,
+    checkpoint_000.pt; one process restores it with --load_checkpoint and
+    takes 2 more steps; the two ranks at --fsdp 2 restore that one-rank
+    checkpoint and validate (`--test`). Each training run's backward
+    launches are 2 steps' per rank."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import re
+    import shutil
+    import tempfile
+    import warnings
+
+    from semantic_pyramid_for_image_generation_torch.cli import main as cli
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fsdp_cli_")
+    try:
+        root = os.path.join(workdir, "places")
+        write_places_tree(root, 2 * FS_CLI_BATCH, 2 * FS_CLI_BATCH)
+        common = ["--device", str(device), "--epochs", "1", "--batch_size",
+                  str(FS_CLI_BATCH), "--path_to_places365", root,
+                  "--fid_images", str(2 * FS_CLI_BATCH), "--num_workers",
+                  "4", "--allow_random_fid", "--fid_device_stats",
+                  "--validate_after_n_iterations", "1000000", "--log_every",
+                  "1", "--load_pretrained_vgg16", ""]
+        sharded = ["--multihost", "--fsdp", str(FS)]
+        summary = []
+
+        def ranks(argv, label):
+            with open(os.path.join(workdir, "argv.json"), "w") as f:
+                json.dump(argv, f)
+            t0 = time.perf_counter()
+            try:
+                spawn_ranks(fs_cli_rank, workdir)
+            except BaseException:
+                for r in range(DP_WORLD):
+                    path = os.path.join(workdir, f"cli_rank{r}.txt")
+                    if os.path.exists(path):
+                        print(open(path).read()[-3000:], flush=True)
+                raise
+            outs, counts = [], []
+            for r in range(DP_WORLD):
+                with open(os.path.join(workdir, f"cli_rank{r}.txt")) as f:
+                    outs.append(f.read())
+                with open(os.path.join(workdir, f"cli_rank{r}.json")) as f:
+                    counts.append(json.load(f))
+            summary.append(f"{label}: {time.perf_counter() - t0:.1f} s, "
+                           f"launches per rank {counts}")
+            return outs, counts
+
+        outs, counts = ranks(common + sharded + [
+            "--train", "--save_data_path", os.path.join(workdir, "a")], "a")
+        (first,) = glob.glob(os.path.join(workdir, "a", "models_*",
+                                          "checkpoint_000.pt"))
+        for c in counts:
+            for name in ("max_pool_2x2_backward", "upsample_2x_backward"):
+                if c[name] != 2 * TRAIN_LAUNCHES[name]:
+                    raise AssertionError(f"(c) a rank launched {name} "
+                                         f"{c[name]} times")
+        printed = io.StringIO()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed), \
+                contextlib.redirect_stderr(printed), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            cli.main(common + ["--train", "--load_checkpoint", first,
+                               "--save_data_path",
+                               os.path.join(workdir, "b")])
+        if f"Restored checkpoint {first} (step 2)" not in printed.getvalue():
+            print(printed.getvalue()[-3000:], flush=True)
+            raise AssertionError("(c) one process did not restore the "
+                                 "--fsdp 2 checkpoint")
+        summary.append(f"b (one process): {time.perf_counter() - t0:.1f} "
+                       f"s, launches {kernels.launch_counts()}")
+        (second,) = glob.glob(os.path.join(workdir, "b", "models_*",
+                                           "checkpoint_000.pt"))
+        outs, _ = ranks(common + sharded + [
+            "--test", "--load_checkpoint", second, "--save_data_path",
+            os.path.join(workdir, "c")], "c")
+        fids = [re.search(r"FID= (\S+)", out) for out in outs]
+        restored = all(f"Restored checkpoint {second} (step 4)" in out
+                       for out in outs)
+        if not (restored and all(fids) and fids[0].group(1)
+                == fids[1].group(1)):
+            print(outs[0][-3000:], flush=True)
+            raise AssertionError("(c) the --fsdp 2 ranks did not restore "
+                                 "the one-rank checkpoint and agree")
+        saved = torch.load(first, map_location="cpu", weights_only=False)
+        print(f"  (c) {card}: the CLI at full width, bf16, global batch "
+              f"{FS_CLI_BATCH}: (a) --multihost --fsdp {FS} --train on two "
+              f"gloo ranks, 2 steps, validation at start, "
+              f"{os.path.basename(first)} (step {saved['step']}, "
+              f"{os.path.getsize(first) / 1e6:.1f} MB, whole tensors); (b) "
+              f"one process restores it and takes 2 steps; (c) the --fsdp "
+              f"{FS} ranks restore (b)'s file (step 4) and validate: FID "
+              f"{fids[0].group(1)} on both; " + "; ".join(summary),
+              flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs an NVIDIA "
@@ -2872,6 +3301,19 @@ def main() -> int:
     drive_perf_mode_cli(device, card)
     drive_perf_mode_ranks(device, card)
     print(f"  phase 11 took {time.perf_counter() - start:.1f} s", flush=True)
+
+    print("[12] sharded state (--fsdp 2): two gloo ranks on the card (bf16 "
+          "steps, bytes, the fp32 hold and its planted faults), the CLI",
+          flush=True)
+    start = time.perf_counter()
+    sharded = drive_fsdp_ranks(device, card, parallel["ms"])
+    for name, count in sharded["launches"].items():
+        if count == 0:
+            raise AssertionError(f"{name} was never launched on a sharded "
+                                 "rank")
+        kernels[name]["fsdp_rank_launches"] = count
+    drive_fsdp_cli(device, card)
+    print(f"  phase 12 took {time.perf_counter() - start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line())

@@ -30,8 +30,12 @@ except:
     as `--canonical_projection` gives it), `--remat_vgg` (the VGG forward
     on the fakes recomputed in the backward) and `--remat_blocks` (G's and
     D's residual blocks recomputed in the backward);
-  * `--fsdp` > 1 (sharded state) raises NotImplementedError: the port does
-    not have it yet;
+  * `--fsdp K` (with `--multihost`) shards the training state as the JAX
+    package's (data, fsdp) mesh does: the N ranks form an (N // K, K)
+    mesh, and each leaf that the JAX package shards lives on its rank as
+    1/K of itself, with its Adam moments (parallel/mesh.py::shard_state).
+    K must divide N (else ValueError). Checkpoints are the same `.pt` at
+    any K;
   * `--gpus_to_use` and `--use_data_parallel` are accepted and ignored, as
     in the JAX package.
 """
@@ -122,17 +126,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel training on the processes torchrun "
                         "launches (nccl on cuda, gloo on cpu)")
     p.add_argument("--fsdp", type=int, default=1,
-                   help="not in the port yet: values above 1 raise")
+                   help="shard params + Adam moments over this many ranks "
+                        "(a (data, fsdp) mesh; needs --multihost and must "
+                        "divide the ranks)")
     return p
 
 
 def check_supported(args) -> None:
-    """Raise for `--fsdp` > 1, the one mode the port does not have yet, and
-    for flag values the port cannot run."""
-    if args.fsdp > 1:
-        raise NotImplementedError(
-            "--fsdp > 1: not in the PyTorch port yet (ROADMAP Queue 1, item "
-            "16, FSDP; item 13 brought the data axis only)")
+    """Raise for flag values the port cannot run."""
+    if args.fsdp > 1 and not args.multihost:
+        raise ValueError(f"--fsdp {args.fsdp} shards the state over the "
+                         "ranks of a --multihost launch (torchrun "
+                         "--nproc_per_node N ... --multihost)")
     if not args.pallas and args.device.startswith("cuda"):
         raise ValueError("--no-pallas: the port has no kernel-free path on "
                          "the card; its kernels' plain versions run on the "
@@ -167,6 +172,7 @@ def build_trainer(args):
         Places365Loader,
     )
     from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
+        check_fsdp,
         check_replicated,
         init_distributed,
         rank,
@@ -193,6 +199,7 @@ def build_trainer(args):
     else:
         device = resolve_device(args.device)
     world = world_size()
+    check_fsdp(args.fsdp, world)
     if args.batch_size % world:
         rounded = max(world, (args.batch_size // world) * world)
         print(f"batch_size {args.batch_size} -> {rounded} (a multiple of the "
@@ -233,7 +240,8 @@ def build_trainer(args):
         allow_random_fid=args.allow_random_fid,
         fid_device_stats=args.fid_device_stats,
         compat_inference_indices=args.compat_inference_indices,
-        remat_vgg=args.remat_vgg, fused_discriminator=args.fused_d)
+        remat_vgg=args.remat_vgg, fused_discriminator=args.fused_d,
+        fsdp=args.fsdp)
 
     if args.load_checkpoint:
         restore_checkpoint(args.load_checkpoint, trainer.state)

@@ -26,7 +26,7 @@ import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -129,6 +129,20 @@ class Places365:
         return image, label, masks
 
 
+def shard_of(n: int, num_shards: int, shard_id: int) -> Tuple[np.ndarray, int]:
+    """(rows, num_valid): shard `shard_id`'s contiguous rows of a global
+    batch of `n` (np.array_split's) and how many of them count. A shard
+    that gets no row of a ragged batch (n < num_shards) takes the batch's
+    last row as a padded row that does not count (num_valid 0), so every
+    shard runs every batch: over sharded state each generate is a
+    collective (parallel/mesh.py), as the JAX package pads a batch to its
+    mesh."""
+    rows = np.array_split(np.arange(n), num_shards)[shard_id]
+    if len(rows) == 0:
+        return np.arange(n)[-1:], 0
+    return rows, len(rows)
+
+
 class Places365Loader:
     """Shuffled, threaded, prefetching batch iterator.
 
@@ -155,7 +169,9 @@ class Places365Loader:
         the shuffle and mask draws are seeded identically on all shards, so
         concatenating the shard outputs reproduces the unsharded loader
         bit for bit. A shard's batch also holds `shard_rows`, (start, stop,
-        total) of its rows in the global batch, on the host.
+        total) of its rows in the global batch, on the host; a shard that
+        gets no row of a ragged last batch gets a padded row and
+        `num_valid` 0 (`shard_of`).
         `use_native_masks=None` takes the native batched mask kernel when
         the library builds, else the numpy schedule."""
         if not (0 <= shard_id < num_shards):
@@ -233,12 +249,10 @@ class Places365Loader:
                     # masks for the global batch (seeded identically on every
                     # shard), then row-sliced, so shard concat == unsharded
                     native_masks = self._native_masks(len(idx), b, n_batches)
-                    shard_rows = None
+                    shard_rows, num_valid = None, None
                     if self.num_shards > 1:
-                        rows = np.array_split(
-                            np.arange(len(idx)), self.num_shards)[self.shard_id]
-                        if len(rows) == 0:  # ragged final batch < num_shards
-                            continue
+                        rows, num_valid = shard_of(len(idx), self.num_shards,
+                                                   self.shard_id)
                         shard_rows = np.array([rows[0], rows[-1] + 1, len(idx)])
                         idx = idx[rows]
                         if native_masks is not None:
@@ -252,6 +266,8 @@ class Places365Loader:
                     batch = self._collate(samples, native_masks)
                     if shard_rows is not None:
                         batch["shard_rows"] = shard_rows
+                    if num_valid == 0:
+                        batch["num_valid"] = np.int64(0)
                     if not put_or_stop(batch):
                         return
             put_or_stop(None)

@@ -77,7 +77,11 @@ class _SpectralNormLayer(nn.Module):
     `weight_sn` (the JAX export folds sigma the same way). The cache is
     keyed on the version counters of W, u and v, so an optimizer step, a
     state-dict load or any other in-place update recomputes it, and every
-    training forward drops it."""
+    training forward drops it. A layer whose W is sharded
+    (parallel/mesh.py::shard_state sets `cache_normalized` False) computes
+    it at every forward instead: its forward sees the gathered copy of W,
+    whose version counter an update of the shard need not move, and a
+    cache would keep that full-size copy alive."""
 
     def __init__(self, weight_shape, bias: bool):
         super().__init__()
@@ -89,6 +93,7 @@ class _SpectralNormLayer(nn.Module):
         self.register_buffer("weight_v", torch.empty(cols))
         self.register_buffer("weight_sn", None, persistent=False)
         self._sn_versions = None
+        self.cache_normalized = True
         self.spectral_update = True
         self.recompute_guard: Optional[RecomputeGuard] = None
         self.initialize()
@@ -121,19 +126,24 @@ class _SpectralNormLayer(nn.Module):
             self.weight_u, self.weight_v = u, v
             self.weight_sn = None
             return self.weight_orig / sigma
+        if not self.cache_normalized:
+            return self._eval_weight()
         versions = (self.weight_orig._version, self.weight_u._version,
                     self.weight_v._version)
         if self.weight_sn is None or self._sn_versions != versions:
-            with torch.no_grad():
-                sigma, _, _ = spectral_norm_weight(
-                    weight_matrix(self.weight_orig), self.weight_u,
-                    self.weight_v, update=False)
-                weight = self.weight_orig / sigma
-                if weight.dim() == 4:
-                    weight = weight.contiguous(memory_format=torch.channels_last)
-                self.weight_sn = weight
-                self._sn_versions = versions
+            self.weight_sn = self._eval_weight()
+            self._sn_versions = versions
         return self.weight_sn
+
+    @torch.no_grad()
+    def _eval_weight(self) -> torch.Tensor:
+        sigma, _, _ = spectral_norm_weight(
+            weight_matrix(self.weight_orig), self.weight_u, self.weight_v,
+            update=False)
+        weight = self.weight_orig / sigma
+        if weight.dim() == 4:
+            weight = weight.contiguous(memory_format=torch.channels_last)
+        return weight
 
     def _bias(self, dtype: torch.dtype) -> Optional[torch.Tensor]:
         return None if self.bias is None else self.bias.to(dtype)

@@ -43,6 +43,26 @@ class MaxPool2x2(nn.Module):
         return max_pool_2d(x)
 
 
+class Conv3x3(nn.Conv2d):
+    """nn.Conv2d(in, out, 3, padding=1) applied in its input's dtype (the
+    float32 weight cast at apply). Each VGG conv runs as its own module, so
+    FSDP's hooks (parallel/mesh.py::shard_state) gather its weight."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                        padding=1)
+
+
+class Dense(nn.Linear):
+    """nn.Linear applied in its input's dtype, as `Conv3x3`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class _TorchvisionVGG16(nn.Module):
     """torchvision's vgg16 layout (features.0 ... features.30,
     classifier.0/3/6) at widths divided by `width_factor`."""
@@ -55,15 +75,14 @@ class _TorchvisionVGG16(nn.Module):
             if item == "M":
                 layers.append(MaxPool2x2())
             else:
-                layers += [nn.Conv2d(in_ch, item // width_factor, 3, padding=1),
-                           nn.ReLU()]
+                layers += [Conv3x3(in_ch, item // width_factor), nn.ReLU()]
                 in_ch = item // width_factor
         self.features = nn.Sequential(*layers)
         fc = 4096 // width_factor
         self.classifier = nn.Sequential(
-            nn.Linear(in_ch * 7 * 7, fc), nn.ReLU(), nn.Dropout(0.5),
-            nn.Linear(fc, fc), nn.ReLU(), nn.Dropout(0.5),
-            nn.Linear(fc, num_classes))
+            Dense(in_ch * 7 * 7, fc), nn.ReLU(), nn.Dropout(0.5),
+            Dense(fc, fc), nn.ReLU(), nn.Dropout(0.5),
+            Dense(fc, num_classes))
 
 
 class VGG16(nn.Module):
@@ -109,27 +128,25 @@ class VGG16(nn.Module):
 
         features: List[torch.Tensor] = []
         for layer in self.vgg16.features:
-            if isinstance(layer, nn.Conv2d):
-                x = F.conv2d(x, layer.weight.to(dtype), layer.bias.to(dtype),
-                             padding=1)
-            elif isinstance(layer, nn.ReLU):
+            if isinstance(layer, nn.ReLU):
                 x = F.relu(x)
             else:
                 x = layer(x)
-                features.append(x)
+                if isinstance(layer, MaxPool2x2):
+                    features.append(x)
 
         x = adaptive_avg_pool_2d(x, 7, 7)
         x = torch.flatten(x, 1)  # channel-major, as torch flattens NCHW
         fc6, fc7, fc8 = (self.vgg16.classifier[i] for i in (0, 3, 6))
         masks = list(dropout_masks) if dropout_masks is not None else None
-        x = F.relu(F.linear(x, fc6.weight.to(dtype), fc6.bias.to(dtype)))
+        x = F.relu(fc6(x))
         x = self._dropout(x, dropout_rng, masks)
-        x = F.relu(F.linear(x, fc7.weight.to(dtype), fc7.bias.to(dtype)))
+        x = F.relu(fc7(x))
         # the fc7 tap is ReLU(fc7), before the second dropout: the
         # reference's in-place ReLU mutates the tapped tensor
         features.append(x)
         x = self._dropout(x, dropout_rng, masks)
-        x = F.linear(x, fc8.weight.to(dtype), fc8.bias.to(dtype))
+        x = fc8(x)
         features.append(x)
         if self.return_output:
             return x

@@ -1,5 +1,6 @@
-"""Data parallelism over processes: the port's counterpart of the data axis
-of the JAX package's parallel/mesh.py.
+"""Data parallelism and sharded state over processes: the port's
+counterpart of the JAX package's parallel/mesh.py, its data axis and (the
+FSDP section below, `--fsdp`) its fsdp axis.
 
 The JAX package shards each global batch over a device mesh, and GSPMD turns
 every reduction over the batch into a psum. Here each process (a rank) owns
@@ -42,8 +43,10 @@ from __future__ import annotations
 
 import datetime
 import hashlib
+import math
 import os
-from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterable, Mapping, Optional,
+                    Sequence, Tuple)
 
 import torch
 import torch.distributed as dist
@@ -61,7 +64,8 @@ collective_bytes: Dict[str, int] = {}
 
 
 def reset_collective_bytes() -> None:
-    collective_bytes.update(all_reduce=0, all_gather=0, broadcast=0)
+    collective_bytes.update(all_reduce=0, all_gather=0, broadcast=0,
+                            fsdp_all_gather=0, fsdp_reduce_scatter=0)
 
 
 reset_collective_bytes()
@@ -185,10 +189,12 @@ def sum_over_ranks_(tensors: Iterable[torch.Tensor]) -> None:
 
 
 def all_reduce_gradients(module: torch.nn.Module) -> None:
-    """Sum every parameter gradient of `module` over the ranks, in place,
-    in one flat bucket. A parameter without a gradient has none on any rank
-    (every rank builds the same graph)."""
-    sum_over_ranks_(p.grad for p in module.parameters() if p.grad is not None)
+    """Sum every whole parameter gradient of `module` over the ranks, in
+    place, in one flat bucket. A parameter without a gradient has none on
+    any rank (every rank builds the same graph). The gradients of sharded
+    leaves (`shard_state`) are left alone: FSDP has summed them."""
+    sum_over_ranks_(p.grad for p in module.parameters()
+                    if p.grad is not None and not is_dtensor(p.grad))
 
 
 @torch.no_grad()
@@ -268,49 +274,61 @@ def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------ replication --
 
 
-def state_digest(state, vgg: bool = False) -> str:
-    """sha256 over G's and D's state dicts (parameters, u/v, running
-    statistics), both Adam states (moments, step counts) and the step; with
-    `vgg`, the VGG's state dict too."""
+def _feed(digest, tree) -> None:
+    if isinstance(tree, torch.Tensor):
+        t = full_tensor(tree.detach()).reshape(-1).contiguous().cpu()
+        digest.update(str(t.dtype).encode())
+        digest.update(t.view(torch.uint8).numpy().tobytes())
+    elif isinstance(tree, dict):
+        for k in tree:
+            digest.update(str(k).encode())
+            _feed(digest, tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _feed(digest, v)
+    else:
+        digest.update(repr(tree).encode())
+
+
+def tree_digest(tree) -> str:
+    """sha256 over nested tensors (sharded ones whole), dicts, lists and
+    scalars."""
     digest = hashlib.sha256()
-
-    def feed(tree) -> None:
-        if isinstance(tree, torch.Tensor):
-            t = tree.detach().reshape(-1).contiguous().cpu()
-            digest.update(str(t.dtype).encode())
-            digest.update(t.view(torch.uint8).numpy().tobytes())
-        elif isinstance(tree, dict):
-            for k in tree:
-                digest.update(str(k).encode())
-                feed(tree[k])
-        elif isinstance(tree, (list, tuple)):
-            for v in tree:
-                feed(v)
-        else:
-            digest.update(repr(tree).encode())
-
-    for net in ("generator", "discriminator"):
-        feed(getattr(state, net).state_dict())
-        feed(getattr(state, f"{net[0]}_optimizer").state_dict())
-    feed(int(state.step))
-    if vgg:
-        feed(state.vgg.state_dict())
+    _feed(digest, tree)
     return digest.hexdigest()
 
 
-def check_replicated(state, **facts: Any) -> None:
+def state_digest(state, vgg: bool = False) -> str:
+    """sha256 over G's and D's state dicts (parameters, u/v, running
+    statistics), both Adam states (moments, step counts) and the step; with
+    `vgg`, the VGG's state dict too. Sharded tensors are digested whole:
+    every rank gathers them, so every rank calls this."""
+    tree = []
+    for net in ("generator", "discriminator"):
+        tree += [getattr(state, net).state_dict(),
+                 getattr(state, f"{net[0]}_optimizer").state_dict()]
+    tree.append(int(state.step))
+    if vgg:
+        tree.append(state.vgg.state_dict())
+    return tree_digest(tree)
+
+
+def check_replicated(state=None, **facts: Any) -> None:
     """Raise on every rank unless all ranks hold the same G, D, VGG, Adam
-    states and step, and report the same `facts` (which weight files each
-    found). Every rank reads its files from its own disk: the ranks of one
-    run must see the same files."""
+    states and step (unless `state` is None), and report the same `facts`
+    (which weight files each found, the digest of a file each read). Every
+    rank reads its files from its own disk: the ranks of one run must see
+    the same files."""
     if not is_distributed():
         return
-    mine = {"state": state_digest(state, vgg=True), **facts}
+    mine = dict(facts)
+    if state is not None:
+        mine["state"] = state_digest(state, vgg=True)
     every = [None] * world_size()
     dist.all_gather_object(every, mine)
     differ = [r for r, theirs in enumerate(every) if theirs != every[0]]
     if differ:
-        shown = {r: {k: (v[:12] if k == "state" else v)
+        shown = {r: {k: (v[:12] if k in ("state", "file") else v)
                      for k, v in every[r].items()} for r in [0, *differ]}
         raise RuntimeError(
             f"ranks {differ} hold another state than rank 0 after loading "
@@ -318,3 +336,248 @@ def check_replicated(state, **facts: Any) -> None:
             "--load_checkpoint, --auto_resume and --load_inception from its "
             "own disk, so all ranks must see the same files (a shared file "
             "system)")
+
+
+# ------------------------------------------------------------------- FSDP --
+#
+# Sharded state (`--fsdp K`), the counterpart of the JAX package's (data,
+# fsdp) mesh: N ranks form a (N // K, K) DeviceMesh, consecutive ranks in
+# one fsdp group as JAX folds consecutive devices. Each leaf that JAX's
+# `fsdp_spec` shards lives on its rank as 1/K of itself, on the same logical
+# axis, replicated over `data`; its Adam moments follow it. Every other
+# leaf and every buffer (u/v, running statistics) stays whole. FSDP2's
+# `fully_shard` wraps each unit (`fsdp_units`) and each network's root with
+# `reshard_after_forward=True`: a unit's leaves are all-gathered for each
+# of its forwards and again for its backward, and freed after (ZeRO-3, as
+# JAX gathers per layer). Its gradients are reduce-scattered over `fsdp`
+# and all-reduced over `data`, summed; `all_reduce_gradients` sums the
+# whole leaves' gradients over every rank. The step computes what the
+# unsharded step computes: only where the state lives changes.
+
+DATA_AXIS = "data"
+FSDP_AXIS = "fsdp"
+# the JAX package's rule: smaller leaves stay whole (a collective for a
+# vector buys no memory)
+FSDP_MIN_LEAF_ELEMENTS = 1 << 16
+
+
+def check_fsdp(fsdp: int, world: int) -> None:
+    """Raise ValueError when `fsdp` > 1 does not divide the `world` ranks
+    (fsdp <= 1 shards nothing, as in the JAX package)."""
+    if fsdp > 1 and world % fsdp:
+        raise ValueError(f"device count {world} not divisible by fsdp={fsdp}")
+
+
+def make_mesh(fsdp: int, device_type: str = "cuda"):
+    """The (data, fsdp) DeviceMesh of shape (N // fsdp, fsdp) over the N
+    ranks of the process group. Raises ValueError when `fsdp` does not
+    divide N (one process counts as N = 1), as the JAX package's
+    `make_mesh` does for its devices."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = world_size()
+    check_fsdp(fsdp, world)
+    if fsdp < 1:
+        raise ValueError(f"fsdp={fsdp}: the fsdp axis needs 1 or more ranks")
+    if not is_distributed():
+        raise RuntimeError("make_mesh: no process group; launch with "
+                           "torchrun ... --multihost")
+    return init_device_mesh(device_type, (world // fsdp, fsdp),
+                            mesh_dim_names=(DATA_AXIS, FSDP_AXIS))
+
+
+def fsdp_dim(name: str, shape: Sequence[int], fsdp: int) -> Optional[int]:
+    """The dim of the G, D or VGG16 tensor at state-dict key `name` (torch
+    `shape`) that the JAX package's `fsdp_spec` shards over `fsdp` ranks, or
+    None when it stays whole. JAX decides on the flax leaf: one of
+    FSDP_MIN_LEAF_ELEMENTS or more elements is sharded on the first of its
+    largest axes that `fsdp` divides. The flax leaf's axes come from
+    utils/pt_interop.py's layouts (a conv kernel is (kh, kw, in, out) there
+    and (out, in, kh, kw) here), so a tie between two axes resolves to the
+    axis JAX picks."""
+    from semantic_pyramid_for_image_generation_torch.utils.pt_interop import (
+        flax_axes,
+    )
+
+    if fsdp <= 1 or math.prod(shape) < FSDP_MIN_LEAF_ELEMENTS:
+        return None
+    dims = flax_axes(name, len(shape))
+    flax_shape = [shape[d] for d in dims]
+    divisible = [a for a, n in enumerate(flax_shape) if n % fsdp == 0]
+    if not divisible:
+        return None
+    return dims[max(divisible, key=lambda a: flax_shape[a])]
+
+
+def is_dtensor(t: torch.Tensor) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def is_sharded(module: torch.nn.Module) -> bool:
+    """Whether `shard_state` sharded `module` (a network's root)."""
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(module, FSDPModule)
+
+
+def full_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A sharded tensor gathered whole, a plain tensor (a collective: every
+    rank calls it); any other tensor as it is. It gathers with c10d's
+    all_gather: `DTensor.full_tensor`'s functional collective crashes over
+    gloo on the card."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Shard
+
+    mesh, whole = t.device_mesh, t.to_local().contiguous()
+    for i, placement in reversed(list(enumerate(t.placements))):
+        if isinstance(placement, Shard):
+            parts = [torch.empty_like(whole) for _ in range(mesh.size(i))]
+            dist.all_gather(parts, whole, group=mesh.get_group(i))
+            whole = torch.cat(parts, dim=placement.dim)
+    return whole
+
+
+def shard_like(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """`full` (a whole tensor) placed as the sharded `like` is: this rank's
+    part of it on `like`'s mesh, no collective; `full` itself when `like`
+    is whole."""
+    if not is_dtensor(like):
+        return full
+    from torch.distributed.tensor import DTensor, Shard
+
+    local = full.to(device=like.device, dtype=like.dtype)
+    mesh = like.device_mesh
+    coordinate = mesh.get_coordinate()
+    for i, placement in enumerate(like.placements):
+        if isinstance(placement, Shard):
+            local = local.chunk(mesh.size(i), dim=placement.dim)[coordinate[i]]
+    return DTensor.from_local(local.contiguous(), mesh, like.placements,
+                              shape=like.shape, stride=like.stride())
+
+
+def load_state_dict_(module: torch.nn.Module,
+                     state_dict: Mapping[str, torch.Tensor]) -> None:
+    """`module.load_state_dict(state_dict, strict=True)` from whole tensors,
+    each placed as the module's own tensor of that key is (`shard_like`)."""
+    own = module.state_dict()
+    module.load_state_dict({k: shard_like(v, own[k]) if k in own else v
+                            for k, v in state_dict.items()}, strict=True)
+
+
+def fsdp_units(net: torch.nn.Module) -> list:
+    """The modules below a network's root that `shard_state` wraps where
+    they hold a sharded leaf: G's five and D's seven residual blocks, and
+    the VGG's conv and linear layers. The root holds the rest (the
+    attention, the linear, final and head layers)."""
+    from semantic_pyramid_for_image_generation_torch.models.layers import (
+        DiscriminatorInputResidualBlock,
+        DiscriminatorResidualBlock,
+        GeneratorResidualBlock,
+    )
+
+    kinds = (GeneratorResidualBlock, DiscriminatorInputResidualBlock,
+             DiscriminatorResidualBlock, torch.nn.Conv2d, torch.nn.Linear)
+    return [m for m in net.modules() if m is not net and isinstance(m, kinds)]
+
+
+def _counted_comms():
+    """FSDP2's own all-gather and reduce-scatter, their bytes counted in
+    `collective_bytes`: the gathered output, the reduced input."""
+    from torch.distributed.fsdp._fully_shard._fsdp_collectives import (
+        DefaultAllGather,
+        DefaultReduceScatter,
+    )
+
+    class Gather(DefaultAllGather):
+        def __call__(self, output_tensor, input_tensor, group,
+                     async_op=False):
+            collective_bytes["fsdp_all_gather"] += (
+                output_tensor.numel() * output_tensor.element_size())
+            return super().__call__(output_tensor, input_tensor, group,
+                                    async_op=async_op)
+
+    class Scatter(DefaultReduceScatter):
+        def __call__(self, output_tensor, input_tensor, group, op,
+                     async_op=False):
+            collective_bytes["fsdp_reduce_scatter"] += (
+                input_tensor.numel() * input_tensor.element_size())
+            return super().__call__(output_tensor, input_tensor, group, op,
+                                    async_op=async_op)
+
+    return Gather(), Scatter()
+
+
+def sum_gradients_(module) -> None:
+    """FSDP2 sums a unit's gradients over the ranks (its default is the
+    mean): a divide factor of 1 with plain sums, as gloo has no
+    PREMUL_SUM."""
+    module.set_gradient_divide_factor(1.0)
+    module.set_force_sum_reduction_for_comms(True)
+
+
+def shard_state(state, mesh):
+    """Shard `state` (G, D and the frozen VGG) over `mesh`'s fsdp axis in
+    place and return it, with both Adam optimizers rebuilt over the sharded
+    parameters (`fully_shard` replaces each module's parameters, so an
+    optimizer built before would step tensors that no longer run). Call it
+    on every rank, once the ranks hold the same state (after
+    `broadcast_state` and the weight files) and before the optimizers hold
+    any (a restore or a step): it raises otherwise. The eval-mode cache of
+    each sharded spectral layer's normalized weight is turned off (it would
+    key on the gathered copy and keep it alive)."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    from semantic_pyramid_for_image_generation_torch.models.layers import (
+        _SpectralNormLayer,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        make_optimizers,
+    )
+
+    if state.g_optimizer.state or state.d_optimizer.state:
+        raise ValueError("shard_state: the optimizers hold state already; "
+                         "shard before restoring a checkpoint or stepping")
+    check_replicated(state)
+    fsdp = mesh.size(1)
+    for net in (state.generator, state.discriminator, state.vgg):
+        dims = {p: fsdp_dim(name, p.shape, fsdp)
+                for name, p in net.named_parameters()}
+        for p, dim in dims.items():
+            if dim is not None:  # FSDP2 shards contiguous tensors only
+                p.data = p.data.contiguous()
+        kwargs = dict(mesh=mesh, reshard_after_forward=True,
+                      shard_placement_fn=lambda p, dims=dims: Shard(dims[p]),
+                      ignored_params={p for p, d in dims.items() if d is None})
+        for m in net.modules():
+            if isinstance(m, _SpectralNormLayer) and \
+                    dims[m.weight_orig] is not None:
+                m.cache_normalized = False
+        units = [u for u in fsdp_units(net)
+                 if any(dims[p] is not None for p in u.parameters())]
+        for unit in units:
+            fully_shard(unit, **kwargs)
+        fully_shard(net, **kwargs)
+        # in the backward each unit prefetches the one before it, so each
+        # is gathered once per backward pass through it and never for a
+        # forward that has none (FSDP2's default follows the order of every
+        # forward since the last backward: the no-grad VGG forward on the
+        # real batch too). The root and the first unit prefetch themselves,
+        # nothing: an empty list would mean FSDP2's default, and the root's
+        # hook fires once per output (the VGG's seven).
+        for m, before in zip(units[1:], units):
+            m.set_modules_to_backward_prefetch([before])
+        for m in [net, *units[:1]]:
+            m.set_modules_to_backward_prefetch([m])
+        for m in [net, *units]:
+            sum_gradients_(m)
+            gather, scatter = _counted_comms()
+            m.set_custom_all_gather(gather)
+            m.set_custom_reduce_scatter(scatter)
+    lr = state.g_optimizer.param_groups[0]["lr"]
+    state.g_optimizer, state.d_optimizer = make_optimizers(
+        state.generator, state.discriminator, lr)
+    return state

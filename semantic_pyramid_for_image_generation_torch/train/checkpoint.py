@@ -1,7 +1,7 @@
 """Checkpoint and resume, counterpart of the JAX package's train/checkpoint.py.
 
 The port's one format is the reference `.pt` layout
-(`utils/pt_interop.py::save_reference_gan_checkpoint`): G and D state dicts
+(`utils/pt_interop.py::reference_gan_checkpoint`): G and D state dicts
 (parameters, spectral u/v, batch-norm statistics) and both torch Adam state
 dicts, plus the step. The JAX package reads these files with
 `--load_checkpoint x.pt`, and the port reads the reference's and the JAX
@@ -15,42 +15,66 @@ import os
 import re
 from typing import Optional
 
+import torch
+
+from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
+    check_replicated,
+    is_sharded,
+    load_state_dict_,
+    tree_digest,
+)
 from semantic_pyramid_for_image_generation_torch.train.state import (
     TrainState,
     import_adam_moments,
 )
 from semantic_pyramid_for_image_generation_torch.utils.pt_interop import (
     load_reference_gan_checkpoint,
-    save_reference_gan_checkpoint,
+    reference_gan_checkpoint,
 )
 
 _NAME = re.compile(r"^checkpoint_(\d+)\.pt$")
 
 
 def save_checkpoint(directory: str, state: TrainState,
-                    step: Optional[int] = None) -> str:
+                    step: Optional[int] = None, write: bool = True
+                    ) -> Optional[str]:
     """Write `<directory>/checkpoint_<step:03d>.pt` (the step defaults to
-    `state.step`), overwriting a file of that name as torch.save does."""
+    `state.step`), overwriting a file of that name as torch.save does, and
+    return its path. A sharded state is gathered whole on every rank, so
+    every rank calls this, and only the one with `write` writes (the others
+    return None): the file is the one the unsharded state writes."""
     step = int(state.step) if step is None else step
+    if not (write or is_sharded(state.generator)):
+        return None
+    checkpoint = reference_gan_checkpoint(state)
+    if not write:
+        return None
     os.makedirs(directory, exist_ok=True)
     path = os.path.abspath(os.path.join(directory, f"checkpoint_{step:03d}.pt"))
-    save_reference_gan_checkpoint(path, state)
+    torch.save(checkpoint, path)
     return path
 
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a reference-layout `.pt` into `state` in place (strict keys; Adam
     moments mapped by parameter key) and return it. The step is the file's
-    `step`, else its Adam step count (the reference layout has no step)."""
+    `step`, else its Adam step count (the reference layout has no step).
+    A sharded state takes its part of each whole tensor of the file, at any
+    fsdp (parallel/mesh.py::load_state_dict_); every rank reads the file
+    from its own disk, and the ranks raise unless they read the same one
+    (each would hold its part of another state)."""
     if not path.endswith(".pt"):
         raise ValueError(
             f"{path}: the port reads reference-layout .pt checkpoints only; "
             "convert an orbax checkpoint with the JAX package's "
-            "cli/convert_checkpoint.py orbax-to-pt (the port's own "
-            "cli/convert_checkpoint.py is a later item)")
+            "cli/convert_checkpoint.py orbax-to-pt (orbax is a JAX "
+            "library; the port's cli/convert_checkpoint.py has no orbax "
+            "modes)")
     ckpt = load_reference_gan_checkpoint(path)
-    state.generator.load_state_dict(ckpt["generator"], strict=True)
-    state.discriminator.load_state_dict(ckpt["discriminator"], strict=True)
+    if is_sharded(state.generator):
+        check_replicated(file=tree_digest(ckpt))
+    load_state_dict_(state.generator, ckpt["generator"])
+    load_state_dict_(state.discriminator, ckpt["discriminator"])
     adam_step = None
     for optimizer, net in ((state.g_optimizer, "generator"),
                            (state.d_optimizer, "discriminator")):

@@ -23,7 +23,11 @@ directories and writes metrics, grids and checkpoints, and every rank
 waits for each checkpoint to be written; `auto_resume` restores on every
 rank the file rank 0 picks. Validation walks each rank's rows and sums the
 FID moments over the ranks; every rank runs the grid's generate, so the
-eval generator advances alike on every rank.
+eval generator advances alike on every rank. With `fsdp` > 1 the state is
+sharded (parallel/mesh.py::shard_state): every generate is then a
+collective, and a rank that gets no row of a ragged validation batch
+generates a padded row it does not count (data/places365.py::shard_of);
+each checkpoint is gathered whole on every rank and written by rank 0.
 """
 
 from __future__ import annotations
@@ -53,7 +57,9 @@ from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
     broadcast_object,
     broadcast_state,
     global_rows,
+    make_mesh,
     rank,
+    shard_state,
     world_size,
 )
 from semantic_pyramid_for_image_generation_torch.train.checkpoint import (
@@ -111,13 +117,18 @@ class Trainer:
         write_grids: bool = True,
         remat_vgg: bool = False,
         fused_discriminator: bool = False,
+        fsdp: int = 1,
     ) -> None:
         """`state` defaults to a random init from `seed` on `device`.
         `write_grids=False` keeps each sweep grid as the array `last_grid`
         and writes no PNG (PIL is imported only to write one).
         `remat_vgg` and `fused_discriminator` are the train step's perf
         modes (train/step.py::make_train_step); `config.remat_blocks` is
-        the third."""
+        the third. `fsdp` > 1 shards the state over a (data, fsdp) mesh of
+        the ranks (parallel/mesh.py::shard_state) once rank 0's is
+        broadcast; it raises ValueError unless it divides the ranks. Pass
+        an unsharded `state` whose optimizers hold nothing yet, and restore
+        checkpoints after."""
         self.device = resolve_device(device)
         self.config = config
         self.training_dataset = training_dataset
@@ -127,6 +138,10 @@ class Trainer:
         self.state = state if state is not None else init_train_state(
             config, self.device, lr=lr, seed=seed)
         broadcast_state(self.state)
+        self.mesh = None
+        if fsdp > 1:
+            self.mesh = make_mesh(fsdp, self.device.type)
+            shard_state(self.state, self.mesh)
         self.is_lead = rank() == 0
         self.step_fn = make_train_step(
             w_rec=w_rec, w_div=w_div, remat_vgg=remat_vgg,
@@ -251,10 +266,10 @@ class Trainer:
 
     def save_checkpoint(self, step: int) -> Optional[str]:
         """Rank 0 writes `checkpoint_<step>.pt` and returns its path (None on
-        the other ranks); every rank returns once it is written."""
-        path = None
-        if self.is_lead:
-            path = save_checkpoint(self.paths["models"], self.state, step=step)
+        the other ranks); every rank takes part (a sharded state is
+        gathered whole) and returns once it is written."""
+        path = save_checkpoint(self.paths["models"], self.state, step=step,
+                               write=self.is_lead)
         barrier()
         return path
 

@@ -6,6 +6,7 @@ Counterpart of the JAX package's train/step.py: `ensure_m11_images`,
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,6 +27,7 @@ from semantic_pyramid_for_image_generation_torch.models.vgg16 import VGG16
 from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
     all_reduce_gradients,
     global_rows,
+    is_sharded,
     sum_metrics,
 )
 from semantic_pyramid_for_image_generation_torch.train.losses import (
@@ -88,6 +90,32 @@ def discriminate_fused(discriminator: torch.nn.Module, images: torch.Tensor,
     return pred[:b], pred[b:]
 
 
+@contextlib.contextmanager
+def frozen(module: torch.nn.Module):
+    """`module`'s parameters take no gradients for the duration."""
+    wanted = [(p, p.requires_grad) for p in module.parameters()]
+    module.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, requires_grad in wanted:
+            p.requires_grad_(requires_grad)
+
+
+def backward_generator(loss: torch.Tensor, generator: Generator) -> None:
+    """G's parameter gradients of the G phase's `loss`, and no others.
+    Unsharded, the backward takes G's parameters as its `inputs`. Sharded
+    (parallel/mesh.py::shard_state), `parameters()` are the shards, which
+    the graph does not hold (FSDP gathers a copy for each use), so `inputs`
+    would give G no gradients: D is frozen for the phase instead
+    (`frozen`), the VGG always is, and the backward runs over the whole
+    graph."""
+    if is_sharded(generator):
+        loss.backward()
+    else:
+        loss.backward(inputs=list(generator.parameters()))
+
+
 def make_train_step(w_rec: float = DEFAULT_W_REC,
                     w_div: float = DEFAULT_W_DIV,
                     remat_vgg: bool = False,
@@ -142,7 +170,12 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
     the global batch from `rng` (seeded alike on every rank) and sliced to
     this rank's rows; pinned latents are this rank's rows. Each gradient is
     summed over the ranks before its Adam step, and the metrics are the
-    global losses on every rank."""
+    global losses on every rank.
+
+    A state sharded over a (data, fsdp) mesh (parallel/mesh.py::shard_state)
+    steps the same way: FSDP gathers each unit's leaves for its forwards and
+    backwards and sums their gradients, and the G phase freezes D
+    (`backward_generator`)."""
 
     def train_step(state: TrainState, batch: Batch,
                    rng: Optional[torch.Generator] = None):
@@ -190,17 +223,18 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
             all_reduce_gradients(discriminator)
             state.d_optimizer.step()
             # ---- generator phase (sees the updated discriminator)
-            noise_g = noise("noise_g")
-            fake = generator(noise_g, features_real, masks, labels)
-            loss_g = lsgan_generator_loss(discriminator(fake, labels))
-            loss_div = w_div * diversity_loss(fake, noise_g)
-            features_fake = (checkpoint(vgg, fake, use_reentrant=False)
-                             if remat_vgg else vgg(fake))
-            loss_rec = w_rec * semantic_reconstruction_loss(
-                features_real, features_fake, masks)
-            state.g_optimizer.zero_grad(set_to_none=True)
-            (loss_g + loss_div + loss_rec).backward(
-                inputs=list(generator.parameters()))
+            with (frozen(discriminator) if is_sharded(discriminator)
+                  else contextlib.nullcontext()):
+                noise_g = noise("noise_g")
+                fake = generator(noise_g, features_real, masks, labels)
+                loss_g = lsgan_generator_loss(discriminator(fake, labels))
+                loss_div = w_div * diversity_loss(fake, noise_g)
+                features_fake = (checkpoint(vgg, fake, use_reentrant=False)
+                                 if remat_vgg else vgg(fake))
+                loss_rec = w_rec * semantic_reconstruction_loss(
+                    features_real, features_fake, masks)
+                state.g_optimizer.zero_grad(set_to_none=True)
+                backward_generator(loss_g + loss_div + loss_rec, generator)
             all_reduce_gradients(generator)
             state.g_optimizer.step()
         state.step += 1
@@ -223,13 +257,19 @@ def make_generate_fn(generator: Generator, vgg: VGG16) -> Callable:
     images (B, H, W, 3) float in [-1, 1] or uint8; masks the 7 shallow->deep
     levels, conv levels (B, h, w, 1); labels (B, num_classes) one-hot; noise
     (B, latent_dim). All NHWC as the JAX package's calling convention, on the
-    models' device. Returns (B, H, W, 3) in the compute dtype."""
+    models' device. Returns (B, H, W, 3) in the compute dtype. It runs
+    under `torch.inference_mode`; sharded models (parallel/mesh.py) under
+    `torch.no_grad`, as FSDP's gathered copies of their leaves must stay
+    usable by later training forwards. Over sharded models every rank runs
+    every generate (each forward gathers leaves from the other ranks)."""
     if generator.training or vgg.training:
         raise ValueError("make_generate_fn needs eval-mode models (.eval())")
+    no_grad = (torch.no_grad if is_sharded(generator) or is_sharded(vgg)
+               else torch.inference_mode)
 
     def generate(images: torch.Tensor, masks: Sequence[torch.Tensor],
                  labels: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode(), exact_float32():
+        with no_grad(), exact_float32():
             features = vgg(_nchw(ensure_m11_images(images)))
             masks = _float_masks(masks)
             fakes = generator(noise.float(), features, masks, labels.float())

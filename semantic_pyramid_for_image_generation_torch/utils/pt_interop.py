@@ -1,6 +1,6 @@
 """The weight bridge: JAX-package parameters and reference `.pt` files into
 the port's state dicts and back, and the reference-layout GAN checkpoint
-the port writes and reads (`save_reference_gan_checkpoint`,
+the port writes and reads (`reference_gan_checkpoint`,
 `load_reference_gan_checkpoint`).
 
 The JAX package's variables are nested dicts of arrays (`params`,
@@ -23,6 +23,10 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
+    full_tensor,
+)
 
 _VGG_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
 _VGG_FCS = (0, 3, 6)
@@ -201,6 +205,35 @@ def discriminator_layout() -> _Layout:
     return e
 
 
+# the torch dim that holds each flax axis, per layout kind
+_FLAX_AXES = {"conv": (2, 3, 1, 0), "dense": (1, 0)}
+
+
+_KINDS: Dict[str, str] = {}
+
+
+def _layout_kinds() -> Dict[str, str]:
+    """Every G, D and VGG16 state-dict key -> its layout kind."""
+    if not _KINDS:
+        for layout in (generator_layout(), discriminator_layout()):
+            _KINDS.update((key, kind) for key, _, _, kind in layout.entries)
+        for key in vgg16_state_dict_keys():
+            _KINDS[key] = ("same" if key.endswith("bias") else
+                           "conv" if ".features." in key else "dense")
+    return _KINDS
+
+
+def flax_axes(key: str, ndim: int) -> tuple:
+    """The torch dims of the tensor at G, D or VGG16 state-dict key `key`
+    in the order of its flax leaf's axes: flax axis j is torch dim
+    `flax_axes(key, ndim)[j]`."""
+    kind = _layout_kinds().get(key)
+    if kind is None:
+        raise KeyError(f"{key}: not a key of the generator, discriminator "
+                       "or VGG16 layout")
+    return _FLAX_AXES.get(kind, tuple(range(ndim)))
+
+
 def generator_state_dict_from_flax(
         variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX Generator variables {params, spectral, batch_stats} -> the port's
@@ -332,8 +365,10 @@ def parameter_keys(model_sd: Mapping[str, Any]) -> list:
 
 
 def _to_cpu(obj):
+    """Tensors in `obj` as CPU copies, a sharded one gathered whole
+    (parallel/mesh.py::full_tensor: every rank calls this)."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().to("cpu", copy=True)
+        return full_tensor(obj.detach()).to("cpu", copy=True)
     if isinstance(obj, dict):
         return {k: _to_cpu(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -354,12 +389,14 @@ def adam_state_dict_in_module_order(optimizer: torch.optim.Optimizer,
     return _to_cpu(optimizer.state_dict())
 
 
-def save_reference_gan_checkpoint(path: str, state) -> None:
-    """Write a TrainState as a reference `checkpoint_XXX.pt` (G and D state
-    dicts and torch Adam state dicts, all on the CPU) plus its `step`; the
-    JAX package's `load_reference_gan_checkpoint(include_optimizer=True)`
-    reads it with the moments on the right parameters."""
-    torch.save({
+def reference_gan_checkpoint(state) -> Dict[str, Any]:
+    """A TrainState as the reference `checkpoint_XXX.pt` layout: G and D
+    state dicts and torch Adam state dicts, whole tensors on the CPU, plus
+    its `step`. The JAX package's `load_reference_gan_checkpoint(
+    include_optimizer=True)` reads the file with the moments on the right
+    parameters. A sharded state gives the same dict as its unsharded twin;
+    every rank gathers it, so every rank calls this."""
+    return {
         "generator": _to_cpu(state.generator.state_dict()),
         "discriminator": _to_cpu(state.discriminator.state_dict()),
         "generator_optimizer": adam_state_dict_in_module_order(
@@ -367,7 +404,7 @@ def save_reference_gan_checkpoint(path: str, state) -> None:
         "discriminator_optimizer": adam_state_dict_in_module_order(
             state.d_optimizer, state.discriminator),
         "step": int(state.step),
-    }, path)
+    }
 
 
 def load_reference_gan_checkpoint(path: str) -> Dict[str, Any]:

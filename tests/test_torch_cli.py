@@ -13,8 +13,9 @@ Places365 tree.
     directory, and a relative `--load_pretrained_vgg16` or `--auto_resume`
     names a file that only rank 0's directory holds.
 
-`--fsdp` > 1 still raises, before any process group is joined
-(tests/test_torch_trainer.py::test_flags_of_missing_modes_raise).
+`--fsdp` > 1 shards the state over these ranks
+(tests/test_torch_fsdp_cli.py); the values it refuses are held in
+tests/test_torch_trainer.py::test_fsdp_flags_that_cannot_shard_raise.
 """
 
 import glob

@@ -153,22 +153,31 @@ def test_shards_concat_to_the_jax_global_batch(dataset_root, use_native_masks):
 def test_shard_rows_place_each_shard_in_its_global_batch(dataset_root):
     """A shard's batch says where its rows sit in the global batch (the
     Trainer draws a validation batch's latents for the global batch); an
-    unsharded batch has no `shard_rows`."""
+    unsharded batch has no `shard_rows`. A shard that gets no row of the
+    ragged last batch gets that batch's last row, padded, with `num_valid`
+    0: every shard runs every batch (a generate over sharded state is a
+    collective)."""
     ds = Places365(dataset_root, "train.txt", CFG)
     kw = dict(batch_size=5, num_workers=2, seed=7, drop_last=False)
     assert all("shard_rows" not in b for b in Places365Loader(ds, **kw))
-    for shards in (2, 3):
+    padded = 0
+    for shards in (2, 3, 4):
         parts = [list(Places365Loader(ds, num_shards=shards, shard_id=s, **kw))
                  for s in range(shards)]
         totals = [min(5, len(ds) - 5 * i) for i in range(-(-len(ds) // 5))]
         for s, part in enumerate(parts):
             want = [np.array_split(np.arange(n), shards)[s] for n in totals]
-            want = [(int(w[0]), int(w[-1]) + 1, n)
-                    for w, n in zip(want, totals) if len(w)]
+            valid = [len(w) for w in want]
+            want = [(int(w[0]), int(w[-1]) + 1, n) if len(w) else (n - 1, n, n)
+                    for w, n in zip(want, totals)]
             got = [tuple(int(v) for v in b["shard_rows"]) for b in part]
             assert got == want
             assert [b["images"].shape[0] for b in part] == \
                 [stop - start for start, stop, _ in want]
+            assert [int(b.get("num_valid", b["images"].shape[0]))
+                    for b in part] == valid
+            padded += valid.count(0)
+    assert padded  # some shard got no row of a ragged batch
 
 
 def test_abandoned_iterator_stops_its_producer(dataset_root):

@@ -123,18 +123,30 @@ def _batches(cfg, n, seed=5):
     return out
 
 
-def _run_jax(jcfg, variables, batches, **step_flags):
+def _run_jax(jcfg, variables, batches, mesh=None, **step_flags):
+    """The JAX step over `batches` from `variables`; with a JAX `mesh`, on
+    the state and batches sharded over it (`shard_state`, `shard_batch`).
+    The metrics and the G and D state dicts after each step."""
+    from semantic_pyramid_for_image_generation_tpu.parallel import (
+        shard_batch,
+        shard_state,
+    )
+
     g_vars, d_vars, v_vars = variables
     g_tx, d_tx = jstate.make_optimizers(LR)
     state = jstate.init_train_state(
         jax.random.key(0), jcfg, g_tx, d_tx, vgg_variables=v_vars,
         g_variables=g_vars, d_variables=d_vars)
+    if mesh is not None:
+        state = shard_state(state, mesh)
     step = jax_make_train_step(*jstate.make_models(jcfg), g_tx, d_tx,
                                donate=False, **step_flags)
     metrics, snapshots = [], []
     for batch in batches:
-        state, m = step(state, jax.tree.map(jnp.asarray, batch),
-                        jax.random.key(7))
+        batch = jax.tree.map(jnp.asarray, batch)
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
+        state, m = step(state, batch, jax.random.key(7))
         metrics.append({k: float(m[k]) for k in METRICS})
         snapshots.append({
             "generator": export_generator_state_dict(

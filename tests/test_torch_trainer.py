@@ -15,8 +15,9 @@
     looped 7-row generates with the same latents (1e-5 absolute in fp32:
     the same per-sample arithmetic at another batch size).
   * CLI: the parser's dests and defaults are the JAX package's but for
-    `--device`; the flags of modes the port lacks raise (`--multihost` runs:
-    tests/test_torch_cli.py); `main` trains,
+    `--device`; `--fsdp` raises without `--multihost` and when it does not
+    divide the ranks (`--multihost` runs: tests/test_torch_cli.py, with
+    `--fsdp`: tests/test_torch_fsdp_cli.py); `main` trains,
     validates, writes metrics, `checkpoint_000.pt` and a grid PNG on a mini
     Places365 tree, and resumes from the checkpoint.
 """
@@ -225,16 +226,39 @@ def test_parser_matches_jax_but_device():
     assert got == want
 
 
-@pytest.mark.parametrize("flags,match", [
-    # --fsdp names item 16 and item 13, which brought the data axis only;
-    # --multihost trains (tests/test_torch_cli.py) but refuses --fsdp before
-    # it joins a process group. The perf modes run
-    # (tests/test_torch_perf_modes_port.py).
-    (["--fsdp", "2"], "item 13"), (["--multihost", "--fsdp", "2"], "item 13"),
-    (["--fsdp", "4"], "item 16")])
-def test_flags_of_missing_modes_raise(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(flags + ["--device", "cpu"])
+@pytest.mark.parametrize("flags,world,match", [
+    # --fsdp K shards over the ranks of a --multihost launch
+    # (tests/test_torch_fsdp_cli.py) and K must divide them, one process
+    # counting one, as the JAX package's make_mesh words it
+    (["--fsdp", "2"], 1, "--fsdp 2 shards the state over the ranks of a "
+                         "--multihost launch"),
+    (["--multihost", "--fsdp", "4"], 1, "device count 1 not divisible by "
+                                        "fsdp=4"),
+    (["--multihost", "--fsdp", "3"], 2, "device count 2 not divisible by "
+                                        "fsdp=3")])
+def test_fsdp_flags_that_cannot_shard_raise(flags, world, match, tmp_path,
+                                            monkeypatch):
+    from semantic_pyramid_for_image_generation_torch.parallel import mesh
+    from torch_parallel_rank import free_port, join, start
+
+    argv = flags + ["--device", "cpu", "--save_data_path", str(tmp_path)]
+    if world > 1:
+        procs = start(world, ["-m", "semantic_pyramid_for_image_generation_"
+                                    "torch.cli.main", *argv])
+        with pytest.raises(AssertionError, match="exited") as raised:
+            join(procs, timeout=120)
+        assert str(raised.value).count(f"ValueError: {match}") == world
+        return
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(free_port()))
+    try:
+        with pytest.raises(ValueError, match=match):
+            cli.main(argv)
+    finally:
+        mesh.shutdown_distributed()
+    assert not mesh.is_distributed()
 
 
 def test_checkpoint_and_pallas_flags_are_checked():
