@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
 the fused G/D train step, the Trainer, the VGG-16 fine-tune, data-parallel
-training, the train step's perf modes and sharded training state.
+training, the train step's perf modes, sharded training state and the
+serving programs.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -76,9 +77,11 @@ Phases; any failure raises and exits non-zero, before the result lines:
     on processes; 2 epochs of 2 steps with --export_pt; a --resume restores
     weights, Adam state, epoch and best_prec1 bitwise, one more pinned step
     from each agrees, the export loads strictly and vgg16_infer runs on it;
-    the bytes written. (d) The serving-artifact writer: phase 5's bf16 modules written
-    with buckets (1, 16), read back, two requests equal to the in-memory
-    service's. The phase's seconds.
+    the bytes written. (d) The modules reader (serving/export.py::
+    ServingArtifact, which reads JAX artifacts): phase 5's bf16 modules
+    written with buckets (1, 16), the programs taken out of the manifest
+    (a JAX artifact lists none), read back by load_artifact, two requests
+    equal to the in-memory service's. The phase's seconds.
  9. torch.profiler over single warm requests per bucket and dtype, over
     one warm train step at batch 16 per dtype, and over one warm bf16
     fine-tune step at batch 256: device time by kernel and by kind of op,
@@ -157,13 +160,33 @@ Phases; any failure raises and exits non-zero, before the result lines:
     `init_distributed` asks for gloo: NCCL puts one rank on a card)
     trains, validates and writes checkpoint_000.pt; one process restores
     it and trains on; the two ranks restore that file and validate.
-13. The `kernels` JSON line (launches from the train path; the serving,
-    Trainer, fine-tune, rank-0 (a), perf-mode and sharded rank-0 paths' as
-    `serving_launches`, `trainer_launches`, `finetune_launches`,
+13. Serving programs (serving/export.py, serving/program.py). (a) Phase
+    5's full-width modules, bf16 and fp32, exported as `cuda` programs:
+    external weights at buckets 1 and 16 with the classifier (and the
+    prepare program, which lays weights.npz out once at load), baked at
+    bucket 1 (laid out at export); export seconds and the bytes of every
+    file. (b) A fresh process (spawned) loads each
+    artifact with ProgramArtifact and serves one request of each kind
+    (external: bucket 1 with the auto class and with class 42, bucket 16;
+    baked: bucket 1 with class 42);
+    its load seconds and first-request ms; it must import no module of
+    models/, train/ or serving/export.py. (c) This process loads them
+    again; with the counters reset, one request of each kind through the
+    programs gives `program_launches`; each request's launches must equal
+    the eager request's (ServingArtifact.from_modules), the fresh
+    process's and phase 5's rule (1 attention, 11 upsample, 6 max pool, 5
+    more for the auto class); outputs held against eager and the fresh
+    process's against this one's (fp32 within 5e-6, bf16 within 0.05 max /
+    0.005 mean; bitwise or not, said); 8 requests each of eager and
+    program timed in turns (median, min-max ms); a profile of one warm bf16
+    program request per bucket. The phase's seconds.
+14. The `kernels` JSON line (launches from the train path; the serving,
+    Trainer, fine-tune, rank-0 (a), perf-mode, sharded rank-0 and program
+    paths' as `serving_launches`, `trainer_launches`, `finetune_launches`,
     `parallel_rank_launches`, `perf_mode_launches` (with
-    `perf_mode_launches_per_step` per mode), `fsdp_rank_launches`;
-    Kernels 2 and 4 at the fine-tune's sites as `finetune_batch256`), the
-    card line again, and last the device line.
+    `perf_mode_launches_per_step` per mode), `fsdp_rank_launches`,
+    `program_launches`; Kernels 2 and 4 at the fine-tune's sites as
+    `finetune_batch256`), the card line again, and last the device line.
 
 Imports torch, numpy and the port only; needs one card and no network.
 """
@@ -1681,9 +1704,10 @@ def drive_finetune_cli(device, card: str) -> None:
 
 
 def check_artifact_round_trip(device, card: str) -> None:
-    """(d) The serving-artifact writer at full width: write phase 5's bf16
-    modules with buckets (1, 16), read the artifact back, and serve the
-    same requests from both."""
+    """(d) The modules reader at full width: write phase 5's bf16 modules
+    with buckets (1, 16), take the programs out of the manifest (as a JAX
+    artifact lists none), read the artifact back with load_artifact, which
+    must give the modules reader, and serve the same requests from both."""
     import os
     import shutil
     import tempfile
@@ -1691,6 +1715,10 @@ def check_artifact_round_trip(device, card: str) -> None:
     from semantic_pyramid_for_image_generation_torch.serving.export import (
         ServingArtifact,
         save_artifact,
+    )
+    from semantic_pyramid_for_image_generation_torch.serving.program import (
+        MANIFEST,
+        load_artifact,
     )
     from semantic_pyramid_for_image_generation_torch.serving.server import (
         GenerateService,
@@ -1702,10 +1730,18 @@ def check_artifact_round_trip(device, card: str) -> None:
         t0 = time.perf_counter()
         save_artifact(g16, v16, workdir, (1, BATCH))
         write_s = time.perf_counter() - t0
+        with open(os.path.join(workdir, MANIFEST)) as f:
+            manifest = json.load(f)
+        with open(os.path.join(workdir, MANIFEST), "w") as f:
+            json.dump(dict(manifest, programs=[]), f)
         t0 = time.perf_counter()
-        read = GenerateService(ServingArtifact(workdir, device))
+        artifact = load_artifact(workdir, device)
         torch.cuda.synchronize()
         read_s = time.perf_counter() - t0
+        if type(artifact) is not ServingArtifact:
+            raise AssertionError(f"load_artifact read an artifact without "
+                                 f"programs with {type(artifact).__name__}")
+        read = GenerateService(artifact)
         live = service_for(g16, v16)
         image = request_image()
         errs = []
@@ -1720,11 +1756,12 @@ def check_artifact_round_trip(device, card: str) -> None:
         size = os.path.getsize(os.path.join(workdir, "weights.npz"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    print(f"  {card}: artifact written in {write_s:.2f} s (weights.npz "
-          f"{size:,} bytes), read in {read_s:.2f} s; requests "
-          f"{[r[:2] for r in REQUESTS[:2]]} from the artifact against the "
-          f"in-memory modules: max |difference| {errs} (tolerance 0: the "
-          f"same weights, the same kernels)", flush=True)
+    print(f"  (d) {card}: artifact written in {write_s:.2f} s (weights.npz "
+          f"{size:,} bytes), its programs taken out of the manifest, read "
+          f"by the modules reader in {read_s:.2f} s; requests "
+          f"{[r[:2] for r in REQUESTS[:2]]} from it against the in-memory "
+          f"modules: max |difference| {errs} (tolerance 0: the same "
+          f"weights, the same kernels)", flush=True)
     if max(errs) > 0.0:
         raise AssertionError("the artifact's output differs")
 
@@ -3197,6 +3234,241 @@ def drive_fsdp_cli(device, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 13 --
+
+
+PG_TIMED = 8  # (c): timed requests per reader, after one warm-up each
+PG_REQUESTS = {  # (c) and (b): (level, num_samples, class_id); None = auto
+    "bucket 1": (0, 1, None),
+    "bucket 1 class 42": (0, 1, 42),
+    "bucket 16": (3, BATCH, 42),
+}
+PG_BAND = (0.05, 0.005)  # bf16 max and mean |difference| (test_bf16_rewrites)
+PG_FP32_ATOL = 5e-6
+PG_TIMEOUT_S = 300
+
+
+def pg_artifacts(workdir: str) -> dict:
+    """{(dtype, weights): artifact directory} of phase 13."""
+    import os
+
+    return {(dtype, weights): os.path.join(workdir, f"{dtype}_{weights}")
+            for dtype in ("bfloat16", "float32")
+            for weights in ("external", "baked")}
+
+
+def pg_request(service, name: str, seed: int = 1) -> dict:
+    level, n, class_id = PG_REQUESTS[name]
+    return service.generate_arrays(request_image(), level=level,
+                                   class_id=class_id, num_samples=n,
+                                   seed=seed)
+
+
+def pg_requests(weights: str) -> list:
+    """The requests each artifact serves; a baked one has no classifier.
+    The class-given bucket-1 request runs on both, so the two differ only
+    in the weight inputs."""
+    return (["bucket 1 class 42"] if weights == "baked" else list(PG_REQUESTS))
+
+
+def program_child(workdir: str, device_type: str) -> None:
+    """(b) In a fresh process (spawned; it imports what chip_smoke.py's top
+    does, then the reader): load each artifact with ProgramArtifact, serve
+    its requests once, and write the load seconds, launches, outputs and
+    the port modules this process imported to `workdir`."""
+    import os
+
+    from semantic_pyramid_for_image_generation_torch.ops import (
+        cuda as kernels,
+    )
+    from semantic_pyramid_for_image_generation_torch.serving.program import (
+        ProgramArtifact,
+    )
+    from semantic_pyramid_for_image_generation_torch.serving.server import (
+        GenerateService,
+    )
+
+    device = torch.device(device_type)
+    result, outputs = {"load_s": {}, "first_ms": {}, "launches": {}}, {}
+    for (dtype, weights), path in pg_artifacts(workdir).items():
+        key = f"{dtype} {weights}"
+        t0 = time.perf_counter()
+        service = GenerateService(ProgramArtifact(path, device))
+        torch.cuda.synchronize()
+        result["load_s"][key] = time.perf_counter() - t0
+        for name in pg_requests(weights):
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            out = pg_request(service, name)
+            result["first_ms"][f"{key} {name}"] = (
+                time.perf_counter() - t0) * 1e3
+            after = kernels.launch_counts()
+            result["launches"][f"{key} {name}"] = {
+                k: after[k] - before[k] for k in after}
+            outputs[f"{key} {name}"] = out["fakes"]
+            result[f"{key} {name} class"] = out["class_id"]
+    port = "semantic_pyramid_for_image_generation_torch."
+    result["model_modules"] = sorted(
+        m for m in sys.modules if m.startswith(
+            (port + "models", port + "train", port + "serving.export")))
+    np.savez(os.path.join(workdir, "child_outputs.npz"), **outputs)
+    with open(os.path.join(workdir, "child.json"), "w") as f:
+        json.dump(result, f)
+
+
+def run_program_child(workdir: str, device) -> dict:
+    import os
+
+    import torch.multiprocessing as mp
+
+    proc = mp.get_context("spawn").Process(target=program_child,
+                                           args=(workdir, device.type))
+    proc.start()
+    proc.join(PG_TIMEOUT_S)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        raise AssertionError(f"the program reader ran past {PG_TIMEOUT_S} s")
+    if proc.exitcode != 0:
+        raise AssertionError(f"the program reader exited {proc.exitcode}")
+    with open(os.path.join(workdir, "child.json")) as f:
+        result = json.load(f)
+    with np.load(os.path.join(workdir, "child_outputs.npz")) as z:
+        result["outputs"] = {k: z[k] for k in z.files}
+    return result
+
+
+def pg_compare(got: np.ndarray, want: np.ndarray, dtype: str) -> str:
+    """Hold `got` against `want` (fp32 within PG_FP32_ATOL, bf16 within
+    PG_BAND); raise past it; say what was read and whether it is bitwise."""
+    diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    if dtype == "float32":
+        ok = diff.max() <= PG_FP32_ATOL
+        limit = f"<= {PG_FP32_ATOL:g}"
+    else:
+        ok = diff.max() <= PG_BAND[0] and diff.mean() <= PG_BAND[1]
+        limit = f"<= {PG_BAND[0]:g} max / {PG_BAND[1]:g} mean"
+    text = (f"max {diff.max():.3g} mean {diff.mean():.3g} ({limit}; "
+            f"{'bitwise' if diff.max() == 0 else 'not bitwise'})")
+    if not ok:
+        raise AssertionError(f"program output off: {text}")
+    return text
+
+
+def drive_serving_programs(device, card: str) -> dict:
+    """(a) Export phase 5's full-width bf16 and fp32 modules as `cuda`
+    programs: external at buckets 1 and 16 with the classifier, baked at
+    bucket 1. (b) A fresh process loads them and serves one request each,
+    importing no model code. (c) In this process, the programs against the
+    eager modules: launches per request equal, outputs held, PG_TIMED
+    requests timed after a warm-up, readers in turns (eager, program,
+    program, eager, ...); one warm bf16 program request per bucket
+    profiled. Returns the launches of (c)'s program requests."""
+    import os
+    import shutil
+    import tempfile
+
+    from semantic_pyramid_for_image_generation_torch.ops import (
+        cuda as kernels,
+    )
+    from semantic_pyramid_for_image_generation_torch.serving.export import (
+        save_artifact,
+    )
+    from semantic_pyramid_for_image_generation_torch.serving.program import (
+        ProgramArtifact,
+    )
+    from semantic_pyramid_for_image_generation_torch.serving.server import (
+        GenerateService,
+    )
+
+    g16, v16, g32, v32 = build_full_width_models(device)
+    nets = {"bfloat16": (g16, v16), "float32": (g32, v32)}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_programs_")
+    try:
+        paths = pg_artifacts(workdir)
+        for (dtype, weights), path in paths.items():
+            t0 = time.perf_counter()
+            manifest = (save_artifact(*nets[dtype], path, (1, BATCH))
+                        if weights == "external" else
+                        save_artifact(*nets[dtype], path, (1,),
+                                      weights="baked", classifier=False))
+            sizes = {f: os.path.getsize(os.path.join(path, f))
+                     for f in sorted(os.listdir(path))}
+            print(f"  (a) {dtype} {weights}: exported in "
+                  f"{time.perf_counter() - t0:.2f} s, platforms "
+                  f"{manifest['platforms']}, torch "
+                  f"{manifest['torch_version']}; bytes {sizes}", flush=True)
+        child = run_program_child(workdir, device)
+        if child["model_modules"]:
+            raise AssertionError(f"the program reader imported "
+                                 f"{child['model_modules']}")
+        print(f"  (b) fresh process: load s "
+              f"{ {k: round(t, 2) for k, t in child['load_s'].items()} }; "
+              f"first request ms "
+              f"{ {k: round(t, 1) for k, t in child['first_ms'].items()} }; "
+              f"no model, train or export module imported", flush=True)
+        programs = {key: GenerateService(ProgramArtifact(path, device))
+                    for key, path in paths.items()}
+        kernels.reset_launch_counts()  # the program path: one request each
+        outputs, deltas = {}, {}
+        for (dtype, weights), program in programs.items():
+            for name in pg_requests(weights):
+                key = f"{dtype} {weights} {name}"
+                before = kernels.launch_counts()
+                outputs[key] = pg_request(program, name)
+                after = kernels.launch_counts()
+                deltas[key] = {k: after[k] - before[k] for k in after}
+        program_launches = kernels.launch_counts()
+        for (dtype, weights), program in programs.items():
+            eager = service_for(*nets[dtype])
+            for name in pg_requests(weights):
+                key = f"{dtype} {weights} {name}"
+                before = kernels.launch_counts()
+                want = pg_request(eager, name)
+                after = kernels.launch_counts()
+                eager_delta = {k: after[k] - before[k] for k in after}
+                vgg_forwards = 1 + (PG_REQUESTS[name][2] is None)
+                expected = dict(GENERATE_LAUNCHES,
+                                max_pool_2x2=5 * vgg_forwards + 1)
+                if not (deltas[key] == eager_delta == child["launches"][key]
+                        == expected):
+                    raise AssertionError(
+                        f"{key}: launches eager {eager_delta}, program "
+                        f"{deltas[key]}, fresh process "
+                        f"{child['launches'][key]}, expected {expected}")
+                got = outputs[key]
+                if not (got["class_id"] == want["class_id"]
+                        == child[f"{key} class"]):
+                    raise AssertionError(f"{key}: the program classifies "
+                                         "otherwise")
+                times = {eager: [], program: []}
+                for rep, service in enumerate([eager, program, program,
+                                               eager] * (PG_TIMED // 2)):
+                    t0 = time.perf_counter()
+                    pg_request(service, name, seed=2 + rep)
+                    times[service].append((time.perf_counter() - t0) * 1e3)
+                ms = {label: (statistics.median(t), min(t), max(t))
+                      for label, t in (("program", times[program]),
+                                       ("eager", times[eager]))}
+                print(f"  (c) {key}: launches {deltas[key]} (= eager's and "
+                      f"the fresh process's); ms/request median (min-max) "
+                      f"of {PG_TIMED}: program {ms['program'][0]:.2f} "
+                      f"({ms['program'][1]:.2f}-{ms['program'][2]:.2f}), "
+                      f"eager {ms['eager'][0]:.2f} ({ms['eager'][1]:.2f}-"
+                      f"{ms['eager'][2]:.2f}); against eager "
+                      f"{pg_compare(got['fakes'], want['fakes'], dtype)}; "
+                      f"the fresh process's against this one's "
+                      f"{pg_compare(child['outputs'][key], got['fakes'], dtype)}",
+                      flush=True)
+        program = programs["bfloat16", "external"]
+        for name in ("bucket 1", "bucket 16"):
+            profile_summary(f"program bfloat16 {name}",
+                            lambda: pg_request(program, name))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return program_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs an NVIDIA "
@@ -3248,7 +3520,7 @@ def main() -> int:
 
     print("[8] VGG-16 fine-tune path: full-width steps (bf16 batch "
           f"{FT_BATCH}, fp32 batch {FT_FP32_BATCH}), Kernels 2 and 4 at its "
-          "sites, the CLI, the artifact writer", flush=True)
+          "sites, the CLI, the modules reader", flush=True)
     start = time.perf_counter()
     finetune, finetune_results = drive_finetune_path(device, card)
     steps = sum(FT_STEPS.values())
@@ -3314,6 +3586,18 @@ def main() -> int:
         kernels[name]["fsdp_rank_launches"] = count
     drive_fsdp_cli(device, card)
     print(f"  phase 12 took {time.perf_counter() - start:.1f} s", flush=True)
+
+    print("[13] serving programs: full-width bf16 and fp32 cuda programs "
+          "exported, loaded in a fresh process, served against eager",
+          flush=True)
+    start = time.perf_counter()
+    programs = drive_serving_programs(device, card)
+    for name, count in programs.items():
+        if (count == 0) != name.endswith("_backward"):
+            raise AssertionError(f"the programs launched {name} {count} "
+                                 "times")
+        kernels[name]["program_launches"] = count
+    print(f"  phase 13 took {time.perf_counter() - start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line())

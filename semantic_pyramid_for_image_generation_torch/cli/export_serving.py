@@ -1,18 +1,24 @@
-"""Write a serving artifact (manifest.json + weights.npz) from the port's
-modules.
+"""Export the generate path as a serving artifact of `torch.export`
+programs.
 
     python -m semantic_pyramid_for_image_generation_torch.cli.export_serving \
         --load_checkpoint runs/models_X/checkpoint_003.pt \
         --load_pretrained_vgg16 pre_trained_models/vgg_places_365_fine_tuned.pt \
-        --out artifacts/generate --batch_sizes 1,8,64
+        --out artifacts/generate --batch_sizes 1,8,64 --platforms cuda
 
-Counterpart of the JAX package's cli/export_serving.py. The weights are the
-JAX package's flax-path layout (serving/export.py), so the port's
-`cli/serve.py` serves the artifact. The port writes no `.jaxexp` programs,
-so `--platforms`, `--weights baked` and `--classifier` (which choose and
-lower those programs) are not flags here; the JAX package's reader cannot
-load a port artifact. Without both weight files the weights are a random
-init from `--seed` (a warning says so).
+Counterpart of the JAX package's cli/export_serving.py. Writes
+`<out>/manifest.json`, one `generate_b{N}.{platform}.pt2` program per batch
+bucket and platform (serving/export.py), `classify_b1.{platform}.pt2`
+(images -> fc8 logits, so serving can derive class_id) unless
+`--no-classifier`, and with `--weights external` (the default) one
+`weights.npz` in the JAX package's flax layout and a
+`prepare.{platform}.pt2` program that lays it out for the port's layers
+once, when the artifact is read, for every program to take as its first
+input; `--weights baked` puts the weights, laid out, inside each program.
+`cuda` programs are exported on the card (raises without one), `cpu`
+programs on the CPU. The port's `cli/serve.py` serves the programs without
+building a model (serving/program.py). Without both weight files the
+weights are a random init from `--seed` (a warning says so).
 """
 
 from __future__ import annotations
@@ -29,6 +35,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="artifact output directory")
     p.add_argument("--batch_sizes", type=str, default="1",
                    help="comma-separated batch buckets")
+    p.add_argument("--platforms", type=str, default=None,
+                   help="comma-separated program targets, cuda and/or cpu "
+                        "(default: the platform of --device)")
+    p.add_argument("--weights", type=str, default="external",
+                   choices=["external", "baked"],
+                   help="'external' (default): graph-only programs + one "
+                        "weights.npz shared by all buckets; 'baked': "
+                        "self-contained programs that carry the weights")
+    p.add_argument("--classifier", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="also export classify_b1 (images -> fc8 logits) so "
+                        "serving can derive class_id")
     p.add_argument("--load_checkpoint", type=str, default=None,
                    help="reference-layout .pt checkpoint (its generator)")
     p.add_argument("--load_pretrained_vgg16", type=str, default=None,
@@ -92,12 +110,19 @@ def main(argv=None) -> int:
 
     manifest = save_artifact(
         generator, vgg, args.out,
-        batch_sizes=[int(b) for b in args.batch_sizes.split(",")])
+        batch_sizes=[int(b) for b in args.batch_sizes.split(",")],
+        platforms=args.platforms.split(",") if args.platforms else None,
+        weights=args.weights, classifier=args.classifier)
+    files = [p["file"] for p in manifest["programs"]]
+    if manifest["weights"] == "external":
+        files.append("weights.npz")
     print(json.dumps({"out": args.out,
                       "batch_buckets": manifest["batch_buckets"],
+                      "platforms": manifest["platforms"],
                       "weights": manifest["weights"],
-                      "bytes": os.path.getsize(
-                          os.path.join(args.out, "weights.npz"))}))
+                      "classifier": manifest["classifier"],
+                      "bytes": {f: os.path.getsize(os.path.join(args.out, f))
+                                for f in files}}))
     return 0
 
 

@@ -1,5 +1,4 @@
-"""Serve a JAX serving artifact (exported with weights="external") over HTTP
-with the port's modules.
+"""Serve a serving artifact over HTTP.
 
     python -m semantic_pyramid_for_image_generation_torch.cli.serve \
         --artifact artifacts/generate --port 8000
@@ -9,7 +8,12 @@ with the port's modules.
         "image_b64": "<base64 PNG/JPEG>", "level": 3, "class_id": 42,
         "num_samples": 4, "seed": 7}'
 
-Endpoints and payload: serving/server.py.
+An artifact of the port's `cli/export_serving.py` is served through its
+`torch.export` programs for the device's platform, without building a model
+(serving/program.py); one of the JAX package's `cli/export_serving` (written
+with weights="external", whose programs the port cannot run) is served by
+the port's modules, built from its weights.npz. Endpoints and payload:
+serving/server.py.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--artifact", type=str, required=True,
-                   help="artifact directory from the JAX cli.export_serving")
+                   help="artifact directory (the port's or the JAX "
+                        "package's cli.export_serving)")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", type=str, default="cuda")

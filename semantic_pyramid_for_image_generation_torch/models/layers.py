@@ -81,7 +81,12 @@ class _SpectralNormLayer(nn.Module):
     (parallel/mesh.py::shard_state sets `cache_normalized` False) computes
     it at every forward instead: its forward sees the gathered copy of W,
     whose version counter an update of the shard need not move, and a
-    cache would keep that full-size copy alive."""
+    cache would keep that full-size copy alive.
+
+    A serving program (serving/export.py) sets the non-persistent buffer
+    `weight_sigma` instead, through `torch.func.functional_call`: in eval
+    mode the layer then divides W by that shipped sigma, uncached, so a
+    traced program reads both from its inputs."""
 
     def __init__(self, weight_shape, bias: bool):
         super().__init__()
@@ -92,6 +97,7 @@ class _SpectralNormLayer(nn.Module):
         self.register_buffer("weight_u", torch.empty(rows))
         self.register_buffer("weight_v", torch.empty(cols))
         self.register_buffer("weight_sn", None, persistent=False)
+        self.register_buffer("weight_sigma", None, persistent=False)
         self._sn_versions = None
         self.cache_normalized = True
         self.spectral_update = True
@@ -126,6 +132,8 @@ class _SpectralNormLayer(nn.Module):
             self.weight_u, self.weight_v = u, v
             self.weight_sn = None
             return self.weight_orig / sigma
+        if self.weight_sigma is not None:
+            return self._divided(self.weight_sigma)
         if not self.cache_normalized:
             return self._eval_weight()
         versions = (self.weight_orig._version, self.weight_u._version,
@@ -140,6 +148,9 @@ class _SpectralNormLayer(nn.Module):
         sigma, _, _ = spectral_norm_weight(
             weight_matrix(self.weight_orig), self.weight_u, self.weight_v,
             update=False)
+        return self._divided(sigma)
+
+    def _divided(self, sigma: torch.Tensor) -> torch.Tensor:
         weight = self.weight_orig / sigma
         if weight.dim() == 4:
             weight = weight.contiguous(memory_format=torch.channels_last)

@@ -1,8 +1,12 @@
 """The port's hand-written CUDA kernels, one wrapper module per source.
 
-Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
-version for CPU tensors only, and counts its launches in a module-level
-integer, so a run can show that its path went through the kernels.
+Each kernel is a torch custom op in the `spig` namespace (`torch.ops.spig.
+max_pool_2x2`, ...): for CUDA tensors it launches the kernel and counts the
+launch in a module-level integer, so a run can show that its path went
+through the kernels; for CPU tensors only it runs the plain PyTorch
+version. A program traced by `torch.export` keeps each call as one node, so
+a loaded program launches (and counts) the same kernels. Importing this
+package registers the ops; nothing is built before the first launch.
 """
 
 from __future__ import annotations

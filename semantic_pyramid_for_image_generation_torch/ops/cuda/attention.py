@@ -6,7 +6,8 @@ Replaces the JAX package's Pallas `pooled_kv_attention` forward
 before p @ v, as the Pallas kernel does. fp32 runs the kernel too, on full
 fp32 FMAs, so the TPU's reason to route fp32 elsewhere does not arise. The
 backward is the plain form of the JAX package's `_bwd`, which JAX computes
-with XLA einsums, not in a Pallas kernel.
+with XLA einsums, not in a Pallas kernel. The kernel is the torch custom op
+`spig::pooled_kv_attention`, built as the pool's are (ops/cuda/pool.py).
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ from typing import Tuple
 import torch
 
 from semantic_pyramid_for_image_generation_torch.ops.cuda import _launch
+from semantic_pyramid_for_image_generation_torch.ops.cuda._launch import (
+    NAMESPACE,
+)
 from semantic_pyramid_for_image_generation_torch.ops.cuda.build import (
     check,
     library,
@@ -52,20 +56,12 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
     return code
 
 
-def pooled_kv_attention(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> torch.Tensor:
-    """q (B, Nq, C8), k (B, Nk, C8), v (B, Nk, C2) -> (B, Nq, C2): the kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+@torch.library.custom_op(f"{NAMESPACE}::pooled_kv_attention",
+                         mutates_args=(), device_types="cuda")
+def _pooled_kv_attention_op(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> torch.Tensor:
+    """Kernel 1 on CUDA tensors."""
     global launches
-    if (q.dim() != 3 or k.dim() != 3 or v.dim() != 3
-            or k.shape[0] != q.shape[0] or v.shape[0] != q.shape[0]
-            or k.shape[2] != q.shape[2] or v.shape[1] != k.shape[1]):
-        raise ValueError(
-            f"pooled_kv_attention: need q (B, Nq, C8), k (B, Nk, C8), "
-            f"v (B, Nk, C2), got {tuple(q.shape)} {tuple(k.shape)} "
-            f"{tuple(v.shape)}")
-    if not _launch.runs_kernel("pooled_kv_attention", q, k, v):
-        return pooled_kv_attention_plain(q, k, v)
     code = check_kernel_inputs(q, k, v)
     b, nq, c8 = q.shape
     nk, c2 = v.shape[1], v.shape[2]
@@ -76,6 +72,29 @@ def pooled_kv_attention(q: torch.Tensor, k: torch.Tensor,
         "pooled_kv_attention")
     launches += 1
     return out
+
+
+_pooled_kv_attention_op.register_kernel("cpu")(pooled_kv_attention_plain)
+
+
+@_pooled_kv_attention_op.register_fake
+def _(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return v.new_empty((q.shape[0], q.shape[1], v.shape[2]))
+
+
+def pooled_kv_attention(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """q (B, Nq, C8), k (B, Nk, C8), v (B, Nk, C2) -> (B, Nq, C2): the kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if (q.dim() != 3 or k.dim() != 3 or v.dim() != 3
+            or k.shape[0] != q.shape[0] or v.shape[0] != q.shape[0]
+            or k.shape[2] != q.shape[2] or v.shape[1] != k.shape[1]):
+        raise ValueError(
+            f"pooled_kv_attention: need q (B, Nq, C8), k (B, Nk, C8), "
+            f"v (B, Nk, C2), got {tuple(q.shape)} {tuple(k.shape)} "
+            f"{tuple(v.shape)}")
+    _launch.check_devices("pooled_kv_attention", q, k, v)
+    return _pooled_kv_attention_op(q, k, v)
 
 
 def pooled_kv_attention_backward_plain(

@@ -5,6 +5,12 @@ autograd Function that joins them.
 Kernel 2 replaces the JAX package's Pallas `max_pool_2x2_pallas` forward and
 Kernel 4 its backward `_mp_vjp_bwd` (ops/pallas/pool.py). Tensors are
 NCHW-logical; the kernels read `torch.channels_last` memory, i.e. NHWC.
+
+Each kernel is the torch custom op `spig::max_pool_2x2` /
+`spig::max_pool_2x2_backward`: its CUDA implementation launches the kernel
+(and counts the launch), its CPU implementation is the plain version, and
+its fake implementation gives the output's shape and layout, so a program
+traced by `torch.export` (serving/export.py) calls the kernel as one node.
 """
 
 from __future__ import annotations
@@ -12,6 +18,9 @@ from __future__ import annotations
 import torch
 
 from semantic_pyramid_for_image_generation_torch.ops.cuda import _launch
+from semantic_pyramid_for_image_generation_torch.ops.cuda._launch import (
+    NAMESPACE,
+)
 from semantic_pyramid_for_image_generation_torch.ops.cuda.build import (
     check,
     library,
@@ -35,23 +44,39 @@ def max_pool_2x2_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.maximum(rows[..., 0::2], rows[..., 1::2])
 
 
-def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    """nn.MaxPool2d(2, 2) for any even H and W: the kernel for a CUDA tensor,
-    the plain version for a CPU tensor. Bitwise equal in fp32 and bf16."""
+@torch.library.custom_op(f"{NAMESPACE}::max_pool_2x2", mutates_args=(),
+                         device_types="cuda")
+def _max_pool_2x2_op(x: torch.Tensor) -> torch.Tensor:
+    """Kernel 2 on a channels_last CUDA tensor."""
     global launches
-    _check_shape("max_pool_2x2", x)
-    if not _launch.runs_kernel("max_pool_2x2", x):
-        return max_pool_2x2_plain(x)
     code = _launch.dtype_code("max_pool_2x2", x)
     _launch.check_channels_last("max_pool_2x2", x)
     b, c, h, w = x.shape
-    out = torch.empty((b, c, h // 2, w // 2), dtype=x.dtype, device=x.device,
-                      memory_format=torch.channels_last)
+    out = _launch.channels_last_like(x, (b, c, h // 2, w // 2))
     check(library().spig_max_pool_2x2(
         x.data_ptr(), out.data_ptr(), b, h, w, c, code,
         _launch.stream(x.device)), "max_pool_2x2")
     launches += 1
     return out
+
+
+_max_pool_2x2_op.register_kernel("cpu")(max_pool_2x2_plain)
+
+
+@_max_pool_2x2_op.register_fake
+def _(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":  # the plain version's layout
+        return max_pool_2x2_plain(x)
+    b, c, h, w = x.shape
+    return _launch.channels_last_like(x, (b, c, h // 2, w // 2))
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """nn.MaxPool2d(2, 2) for any even H and W: the kernel for a CUDA tensor,
+    the plain version for a CPU tensor. Bitwise equal in fp32 and bf16."""
+    _check_shape("max_pool_2x2", x)
+    _launch.check_devices("max_pool_2x2", x)
+    return _max_pool_2x2_op(x)
 
 
 def _balanced(eq_self: torch.Tensor, eq_other: torch.Tensor,
@@ -84,29 +109,46 @@ def max_pool_2x2_backward_plain(x: torch.Tensor,
     return gx.to(x.dtype)
 
 
-def max_pool_2x2_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """(x (B, C, H, W), g (B, C, H/2, W/2)) -> gx (B, C, H, W): the kernel for
-    CUDA tensors, the plain version for CPU tensors. Bitwise equal in fp32
-    and bf16. g may come in any layout (autograd hands over what the next
-    op produced); it is made channels_last before the launch."""
+@torch.library.custom_op(f"{NAMESPACE}::max_pool_2x2_backward",
+                         mutates_args=(), device_types="cuda")
+def _max_pool_2x2_backward_op(x: torch.Tensor,
+                              g: torch.Tensor) -> torch.Tensor:
+    """Kernel 4 on a channels_last x and a g of any layout, on CUDA."""
     global backward_launches
-    _check_shape("max_pool_2x2_backward", x)
-    b, c, h, w = x.shape
-    if tuple(g.shape) != (b, c, h // 2, w // 2):
-        raise ValueError(f"max_pool_2x2_backward: g has shape "
-                         f"{tuple(g.shape)}, want {(b, c, h // 2, w // 2)}")
-    if not _launch.runs_kernel("max_pool_2x2_backward", x, g):
-        return max_pool_2x2_backward_plain(x, g)
     code = _launch.dtype_code("max_pool_2x2_backward", x, g)
     _launch.check_channels_last("max_pool_2x2_backward", x)
     g = g.contiguous(memory_format=torch.channels_last)
-    gx = torch.empty((b, c, h, w), dtype=x.dtype, device=x.device,
-                     memory_format=torch.channels_last)
+    b, c, h, w = x.shape
+    gx = _launch.channels_last_like(x, (b, c, h, w))
     check(library().spig_max_pool_2x2_backward(
         x.data_ptr(), g.data_ptr(), gx.data_ptr(), b, h, w, c, code,
         _launch.stream(x.device)), "max_pool_2x2_backward")
     backward_launches += 1
     return gx
+
+
+_max_pool_2x2_backward_op.register_kernel("cpu")(max_pool_2x2_backward_plain)
+
+
+@_max_pool_2x2_backward_op.register_fake
+def _(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":  # the plain version's gx is laid out as x
+        return torch.empty_like(x)
+    return _launch.channels_last_like(x, tuple(x.shape))
+
+
+def max_pool_2x2_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(x (B, C, H, W), g (B, C, H/2, W/2)) -> gx (B, C, H, W): the kernel for
+    CUDA tensors, the plain version for CPU tensors. Bitwise equal in fp32
+    and bf16. g may come in any layout (autograd hands over what the next
+    op produced); it is made channels_last before the launch."""
+    _check_shape("max_pool_2x2_backward", x)
+    b, c, h, w = x.shape
+    if tuple(g.shape) != (b, c, h // 2, w // 2):
+        raise ValueError(f"max_pool_2x2_backward: g has shape "
+                         f"{tuple(g.shape)}, want {(b, c, h // 2, w // 2)}")
+    _launch.check_devices("max_pool_2x2_backward", x, g)
+    return _max_pool_2x2_backward_op(x, g)
 
 
 class MaxPool2x2Function(torch.autograd.Function):

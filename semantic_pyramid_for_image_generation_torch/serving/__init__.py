@@ -1,6 +1,4 @@
-"""Serving: the JAX artifact reader (`export.py`) and the HTTP service
-(`server.py`)."""
-
-from semantic_pyramid_for_image_generation_torch.serving.export import (  # noqa: F401
-    ServingArtifact,
-)
+"""Serving: the artifact writer and modules reader (`export.py`), the
+program reader that builds no model (`program.py`) and the HTTP service
+(`server.py`). Nothing is imported here, so reading programs does not
+import the model code."""

@@ -1,25 +1,44 @@
-"""The serving artifact: its writer (`save_artifact`) and its reader
-(`ServingArtifact`).
+"""The serving artifact's writer (`save_artifact`, `export_generate`,
+`export_classify`) and its modules reader (`ServingArtifact`).
 
-An artifact is a directory of `manifest.json` plus `weights.npz`, whose keys
-are flax paths: `g/params/...`, `g/spectral/...`, `g/batch_stats/...`,
-`g/sigmas/...` (the eval-mode spectral sigmas) and `vgg/...`, the layout
-the JAX package's `save_artifact(weights="external")` writes.
+Counterpart of the JAX package's serving/export.py. The writer lowers the
+generate path to one `torch.export` program per batch bucket and platform,
+`generate_b{N}.{platform}.pt2` (per-image min-max, the frozen VGG-16
+pyramid, the eval-mode Generator with each spectral weight divided by its
+shipped sigma), and the auto-class classifier to `classify_b1.{platform}.
+pt2` (images -> fc8 logits). The five kernels are torch custom ops
+(`ops/cuda`), so a program calls them as single nodes: a `cuda` program
+launches the port's kernels, a `cpu` program runs their plain versions.
+Callers pass latent noise, so serving is deterministic.
 
-The reader takes a JAX artifact or one the port wrote, and builds the port's
-Generator and VGG16 from `weights.npz` through the weight bridge. The
-`.jaxexp` programs of a JAX artifact are not read: the port runs its own
-modules. Routing keeps the manifest's batch buckets: a call is zero-padded to
-the smallest bucket that fits and the padding is sliced off (every
-per-sample path, including eval-mode batch norm, is batch-independent).
+Weights ship one of two ways (`weights=`):
 
-The writer is the counterpart of the JAX package's `save_artifact`: the same
-manifest fields and the same `weights.npz`, bridged back from the port's
-state dicts. It writes no `.jaxexp` programs, so the JAX package's reader,
-which loads those, cannot read a port artifact; the port's reader can.
+  * "external" (the default): `save_artifact` writes the weight tree of
+    `serving_weights` (the JAX package's flax layout, `g/params/...`,
+    `g/spectral/...`, `g/batch_stats/...`, `g/sigmas/...`, `vgg/...`) once
+    to `weights.npz` for every bucket, and a `prepare.{platform}.pt2`
+    program that lays it out for the port's layers (transposes,
+    channels_last), run once when the artifact is read. Each generate
+    program takes what prepare returns as its first input (the classifier
+    its `vgg.` entries) and holds no tensor of its own beyond a few
+    constants.
+  * "baked": the tensors, laid out once at export, are the program's own
+    state and its `.pt2` carries them.
 
-`ServingArtifact.from_modules` serves in-memory modules the same way, so a
-random-init model can be served without an artifact on disk.
+Either way the program divides each spectral weight by the shipped
+`g/sigmas`, as the JAX program does, and reads the shipped batch-norm
+statistics: the modules are run through `torch.func.functional_call` on the
+tree's tensors, never on their own (the eval-mode cache `weight_sn` of
+models/layers.py would freeze the tracing weights into the program).
+
+`serving/program.py::load_artifact` reads an artifact: one whose manifest
+lists programs with `ProgramArtifact`, which builds no model, and one
+without (a JAX package artifact) with `ServingArtifact`, which builds the
+port's Generator and VGG16 from `weights.npz` through the weight bridge,
+as `ServingArtifact.from_modules` serves in-memory modules.
+Routing keeps the manifest's batch buckets: a call is zero-padded to the
+smallest bucket that fits and the padding is sliced off (every per-sample
+path, including eval-mode batch norm, is batch-independent).
 """
 
 from __future__ import annotations
@@ -27,10 +46,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from semantic_pyramid_for_image_generation_torch.config import PyramidGANConfig
 from semantic_pyramid_for_image_generation_torch.models import make_models
@@ -42,7 +62,24 @@ from semantic_pyramid_for_image_generation_torch.ops.spectral_norm import (
     spectral_norm_weight,
     weight_matrix,
 )
+from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
+    is_sharded,
+)
+from semantic_pyramid_for_image_generation_torch.serving.program import (
+    FORMAT_VERSION,
+    MANIFEST,
+    WEIGHTS,
+    config_from_manifest,
+    flatten_paths,
+    program_file,
+    read_manifest,
+    unflatten_paths,
+    vgg_tensors,
+    weight_tree,
+)
 from semantic_pyramid_for_image_generation_torch.train.step import (
+    ensure_m11_images,
+    generate_nhwc,
     make_generate_fn,
 )
 from semantic_pyramid_for_image_generation_torch.utils.device import (
@@ -53,44 +90,13 @@ from semantic_pyramid_for_image_generation_torch.utils.pt_interop import (
     generator_layout,
     generator_state_dict_from_flax,
     vgg16_flax_from_state_dict,
+    vgg16_layout,
     vgg16_state_dict_from_flax,
 )
 
-_MANIFEST = "manifest.json"
-_FORMAT_VERSION = 1
+PLATFORMS = ("cuda", "cpu")
 
 
-def config_from_manifest(manifest: dict) -> PyramidGANConfig:
-    """The manifest's `config` echo is exactly the dataclass's init fields."""
-    return PyramidGANConfig(**manifest["config"])
-
-
-def _flatten_with_paths(tree, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested string-keyed dicts -> {'a/b/c': leaf}."""
-    flat = {}
-    for key, node in tree.items():
-        if "/" in key:
-            raise ValueError(f"path separator in key {key!r}")
-        path = f"{prefix}/{key}" if prefix else key
-        if isinstance(node, dict):
-            flat.update(_flatten_with_paths(node, path))
-        else:
-            flat[path] = node
-    return flat
-
-
-def _unflatten_paths(flat: Dict[str, np.ndarray]) -> Dict:
-    tree: Dict = {}
-    for path, leaf in flat.items():
-        node = tree
-        *parents, last = path.split("/")
-        for k in parents:
-            node = node.setdefault(k, {})
-        node[last] = leaf
-    return tree
-
-
-@torch.no_grad()
 def serving_weights(generator: Generator, vgg: VGG16) -> Dict:
     """The weight tree an artifact ships, in the JAX package's layout: the
     Generator's {params, spectral, batch_stats} bridged back to flax, its
@@ -113,27 +119,247 @@ def serving_weights(generator: Generator, vgg: VGG16) -> Dict:
     return {"g": g, "vgg": vgg16_flax_from_state_dict(vgg.state_dict())}
 
 
-def save_artifact(generator: Generator, vgg: VGG16, out_dir: str,
-                  batch_sizes: Sequence[int] = (1,)) -> Dict:
-    """Write `<out_dir>/weights.npz` and `<out_dir>/manifest.json` for the
-    given modules (one config) and batch buckets; returns the manifest."""
+class _Generate(nn.Module):
+    """The net a generate program runs: `make_generate_fn`'s body."""
+
+    def __init__(self, generator: Generator, vgg: VGG16):
+        super().__init__()
+        self.generator, self.vgg = generator, vgg
+
+    def forward(self, images, masks, labels, noise):
+        return generate_nhwc(self.generator, self.vgg, images, masks, labels,
+                             noise)
+
+
+class _Classify(nn.Module):
+    """The net a classifier program runs: NHWC images -> fc8 logits."""
+
+    def __init__(self, vgg: VGG16):
+        super().__init__()
+        self.vgg = vgg
+
+    def forward(self, images):
+        return self.vgg(ensure_m11_images(images).permute(0, 3, 1, 2))[-1]
+
+
+def _vgg_tensors(vgg_tree: Dict, prefix: str) -> Dict[str, torch.Tensor]:
+    return {prefix + k: v for k, v in
+            vgg16_layout().tensors_from_flax({"params": vgg_tree}).items()}
+
+
+def _generate_tensors(weights: Dict) -> Dict[str, torch.Tensor]:
+    """`_Generate`'s tensors in the port's layout (transposed, channels_last)
+    from the serving tree: the bridged parameters, u/v and statistics, each
+    spectral layer's shipped sigma as its `weight_sigma`, and the VGG16's
+    (whose `vgg.` part is `_Classify`'s, `vgg_tensors`)."""
+    layout = generator_layout()
+    tensors = {"generator." + k: v
+               for k, v in layout.tensors_from_flax(weights["g"]).items()}
+    for src, dst in layout.spectral:
+        node = weights["g"]["sigmas"]
+        for key in src.split("/"):
+            node = node[key]
+        tensors[f"generator.{dst}.weight_sigma"] = node["sigma"]
+    tensors.update(_vgg_tensors(weights["vgg"], "vgg."))
+    return tensors
+
+
+class _Prepare(nn.Module):
+    """The prepare program: the serving tree (weights.npz) -> the tensors
+    of `_generate_tensors`, which the external generate and classify
+    programs take. Run once, when the artifact is read."""
+
+    def forward(self, weights):
+        return _generate_tensors(weights)
+
+
+class _Program(nn.Module):
+    """What `torch.export` traces: `net` run through
+    `torch.func.functional_call` on its tensors in the port's layout, keyed
+    by the net's state-dict names: the program's first input ("external")
+    or its own buffers ("baked", laid out once, at export). The net is held
+    in a list, so none of its own tensors becomes the program's."""
+
+    def __init__(self, net: nn.Module,
+                 baked: Optional[Dict[str, torch.Tensor]] = None):
+        super().__init__()
+        self._net = [net]
+        self._baked = None if baked is None else {
+            name.replace(".", "__"): name for name in baked}
+        for buffer, name in (self._baked or {}).items():
+            self.register_buffer(buffer, baked[name])
+
+    def forward(self, *args):
+        if self._baked is None:
+            tensors, *args = args
+        else:
+            tensors = {name: getattr(self, buffer)
+                       for buffer, name in self._baked.items()}
+        return torch.func.functional_call(self._net[0], tensors, tuple(args))
+
+
+def _check_exportable(generator: Generator, vgg: VGG16) -> None:
     if generator.config != vgg.config:
         raise ValueError("generator and VGG16 configs differ")
+    if generator.training or vgg.training:
+        raise ValueError("export needs eval-mode modules (.eval())")
+    if is_sharded(generator) or is_sharded(vgg):
+        raise ValueError(
+            "export needs whole modules, not modules sharded by "
+            "parallel/mesh.py::shard_state: export from an unsharded copy "
+            "(e.g. one restored from a checkpoint)")
+
+
+def _generate_inputs(config: PyramidGANConfig, batch: int,
+                     device: torch.device) -> tuple:
+    """Example (images, masks 7-tuple, labels, noise) of the calling
+    convention: float32, NHWC, masks shallow->deep as data/masks.py emits
+    them."""
+    s = config.image_size
+
+    def zeros(*shape):
+        return torch.zeros((batch,) + tuple(shape), device=device)
+
+    return (zeros(s, s, config.out_channels),
+            tuple(zeros(*shape) for shape in config.mask_shapes),
+            zeros(config.num_classes), zeros(config.latent_dim))
+
+
+def _platform_device(generator: Generator,
+                     platform: Optional[str]) -> torch.device:
+    """The device a `platform` program is traced on (default: the
+    modules'); `cuda` without a card raises."""
+    platform = platform or next(generator.parameters()).device.type
+    if platform not in PLATFORMS:
+        raise ValueError(f"platform must be one of {PLATFORMS}: {platform!r}")
+    return resolve_device(platform)
+
+
+def _check_graph_only(program: torch.export.ExportedProgram) -> None:
+    if program.state_dict:
+        raise RuntimeError("an external program captured tensors of its "
+                           f"own: {sorted(program.state_dict)[:5]}")
+
+
+def _export(entry: str, generator: Generator, vgg: VGG16, batch: int,
+            tensors: Dict[str, torch.Tensor], device: torch.device,
+            weights: str) -> torch.export.ExportedProgram:
+    """One program, `entry` ("generate" or "classify") at `batch` rows,
+    traced on `device`, where `tensors` (`_generate_tensors` of the serving
+    weights) lie."""
+    inputs = _generate_inputs(generator.config, batch, device)
+    if entry == "generate":
+        net = _Generate(generator, vgg)
+    else:  # the classifier takes the images and the VGG16's tensors
+        net, tensors, inputs = _Classify(vgg), vgg_tensors(tensors), inputs[:1]
+    if weights == "external":
+        program = torch.export.export(_Program(net), (tensors,) + inputs,
+                                      strict=False)
+        _check_graph_only(program)
+    elif weights == "baked":
+        program = torch.export.export(_Program(net, baked=tensors), inputs,
+                                      strict=False)
+    else:
+        raise ValueError(f"weights must be 'baked' or 'external': {weights}")
+    # a saved program would carry its tracing inputs, the weights included
+    program.example_inputs = None
+    return program
+
+
+def _export_prepare(tree: Dict) -> torch.export.ExportedProgram:
+    program = torch.export.export(_Prepare(), (tree,), strict=False)
+    _check_graph_only(program)
+    program.example_inputs = None
+    return program
+
+
+def _serving_tensors(generator: Generator, vgg: VGG16,
+                     platform: Optional[str]):
+    """(device, `_generate_tensors` of the serving weights on it) of a
+    `platform` export."""
+    _check_exportable(generator, vgg)
+    device = _platform_device(generator, platform)
+    tree = weight_tree(flatten_paths(serving_weights(generator, vgg)), device)
+    return device, _generate_tensors(tree)
+
+
+def export_generate(generator: Generator, vgg: VGG16, batch_size: int, *,
+                    platform: Optional[str] = None,
+                    weights: str = "baked") -> torch.export.ExportedProgram:
+    """The generate path at one batch size as a `torch.export` program on
+    `platform` (`cuda` or `cpu`; default: the modules' device type).
+    weights="baked": generate(images, masks, labels, noise), the weights
+    its own state; "external": generate(tensors, images, masks, labels,
+    noise) with `tensors` what the prepare program of `save_artifact`
+    makes of the weights."""
+    device, tensors = _serving_tensors(generator, vgg, platform)
+    return _export("generate", generator, vgg, batch_size, tensors, device,
+                   weights)
+
+
+def export_classify(generator: Generator, vgg: VGG16, batch_size: int, *,
+                    platform: Optional[str] = None,
+                    weights: str = "baked") -> torch.export.ExportedProgram:
+    """The auto-class classifier, images (B, H, W, 3) -> fc8 logits, as a
+    program; external, it first takes the `vgg_tensors` of what the
+    prepare program makes."""
+    device, tensors = _serving_tensors(generator, vgg, platform)
+    return _export("classify", generator, vgg, batch_size, tensors, device,
+                   weights)
+
+
+def save_artifact(generator: Generator, vgg: VGG16, out_dir: str,
+                  batch_sizes: Sequence[int] = (1,), *,
+                  platforms: Optional[Sequence[str]] = None,
+                  weights: str = "external",
+                  classifier: bool = True) -> Dict:
+    """Export one generate program per batch bucket and platform (default:
+    the modules' device type), with `classify_b1` unless classifier=False
+    and, when the weights are external, the `prepare` program, and write
+    them, `weights.npz` when the weights are external, and `manifest.json`
+    to `out_dir`; returns the manifest."""
+    _check_exportable(generator, vgg)
     config = generator.config
     buckets = sorted(set(int(b) for b in batch_sizes))
     if not buckets or buckets[0] < 1:
         raise ValueError(f"batch_sizes must be positive, got {batch_sizes}")
+    if weights not in ("baked", "external"):
+        raise ValueError(f"weights must be 'baked' or 'external': {weights}")
+    platforms = list(dict.fromkeys(
+        platforms or [next(generator.parameters()).device.type]))
+    devices = [_platform_device(generator, p) for p in platforms]
     os.makedirs(out_dir, exist_ok=True)
-    np.savez(os.path.join(out_dir, "weights.npz"),
-             **_flatten_with_paths(serving_weights(generator, vgg)))
+    flat = flatten_paths(serving_weights(generator, vgg))
+    if weights == "external":
+        np.savez(os.path.join(out_dir, WEIGHTS), **flat)
+    entries = [("generate", b) for b in buckets]
+    if classifier:
+        entries.append(("classify", 1))
+    if weights == "external":
+        entries.insert(0, ("prepare", None))
+    programs = []
+    for platform, device in zip(platforms, devices):
+        tree = weight_tree(flat, device)
+        tensors = _generate_tensors(tree)
+        for entry, batch in entries:
+            name = program_file(entry, batch, platform)
+            program = (_export_prepare(tree) if entry == "prepare" else
+                       _export(entry, generator, vgg, batch, tensors, device,
+                               weights))
+            torch.export.save(program, os.path.join(out_dir, name))
+            programs.append({"file": name, "entry": entry, "batch": batch,
+                             "platform": platform})
     manifest = {
-        "format_version": _FORMAT_VERSION,
-        "entry": "generate(weights, images, masks[7], labels, noise) -> fakes",
-        "weights": "external",
-        "classifier": True,
+        "format_version": FORMAT_VERSION,
+        "entry": ("generate(images, masks[7], labels, noise) -> fakes"
+                  if weights == "baked" else
+                  "generate(prepare(weights), images, masks[7], labels, "
+                  "noise) -> fakes"),
+        "weights": weights,
+        "classifier": classifier,
         "batch_buckets": buckets,
-        "platforms": [],
-        "programs": [],
+        "platforms": platforms,
+        "programs": programs,
         "torch_version": torch.__version__,
         "config": dataclasses.asdict(config),
         "shapes": {
@@ -144,38 +370,46 @@ def save_artifact(generator: Generator, vgg: VGG16, out_dir: str,
             "noise": [None, config.latent_dim],
         },
         "notes": (
-            "written by the PyTorch port: weights.npz only, no .jaxexp "
-            "programs (the JAX package's reader needs them; the port's "
-            "ServingArtifact reads this artifact). The fc8 classifier is "
-            "vgg/classifier_6. masks are the shallow->deep 7-tuple the data "
+            "written by the PyTorch port: torch.export programs (.pt2), "
+            "read with torch.export.load on the torch of torch_version, "
+            "the port's custom ops (torch.ops.spig.*) registered; the "
+            "port's serving/program.py::ProgramArtifact reads them. "
+            "External weights: weights.npz by flax path, passed as the "
+            "nested tree (keys sorted) to the prepare program once; what "
+            "it returns (the port's layout, by state-dict name) goes "
+            "first to every generate program, its vgg. entries to the "
+            "classifier. masks are the shallow->deep 7-tuple the data "
             "pipeline emits (data/masks.py); noise is caller-provided "
-            "N(0,1) so serving is deterministic; images are float in "
+            "N(0,1) so serving is deterministic; images are float32 in "
             "[-1,1]."
         ),
     }
-    with open(os.path.join(out_dir, _MANIFEST), "w") as f:
+    with open(os.path.join(out_dir, MANIFEST), "w") as f:
         json.dump(manifest, f, indent=2)
     return manifest
 
 
 class ServingArtifact:
     """Routes `generate` calls to the right batch bucket and runs the port's
-    eval-mode modules on `device`."""
+    eval-mode modules on `device`: built from an artifact without programs
+    (`weights.npz`), or `from_modules`. An artifact whose manifest lists
+    programs is read by `serving/program.py::load_artifact`, which serves
+    them with `ProgramArtifact`; here it raises."""
 
     def __init__(self, path: str, device: str | torch.device = "cuda"):
-        with open(os.path.join(path, _MANIFEST)) as f:
-            manifest = json.load(f)
-        if manifest["format_version"] != _FORMAT_VERSION:
-            raise ValueError(f"artifact format {manifest['format_version']} "
-                             f"!= supported {_FORMAT_VERSION}")
+        manifest = read_manifest(path)
+        if manifest.get("programs"):
+            raise ValueError(
+                f"{path} lists programs: read it with serving/program.py::"
+                "load_artifact (ProgramArtifact), which builds no model")
         if manifest.get("weights") != "external":
             raise ValueError("the port reads artifacts exported with "
                              "weights='external' (weights.npz); baked "
                              "weights live inside the JAX programs")
         device = resolve_device(device)
         config = config_from_manifest(manifest)
-        with np.load(os.path.join(path, "weights.npz")) as z:
-            tree = _unflatten_paths({k: z[k] for k in z.files})
+        with np.load(os.path.join(path, WEIGHTS)) as z:
+            tree = unflatten_paths({k: z[k] for k in z.files})
         generator, vgg = make_models(config, device)
         generator.load_state_dict(generator_state_dict_from_flax(tree["g"]))
         vgg.load_state_dict(vgg16_state_dict_from_flax(tree["vgg"]))
@@ -187,7 +421,7 @@ class ServingArtifact:
         """Serve in-memory eval-mode modules (one device, one config)."""
         device = next(generator.parameters()).device
         manifest = {
-            "format_version": _FORMAT_VERSION,
+            "format_version": FORMAT_VERSION,
             "weights": "in-memory",
             "classifier": True,
             "batch_buckets": sorted(set(int(b) for b in batch_buckets)),
@@ -246,4 +480,3 @@ class ServingArtifact:
         with torch.inference_mode(), exact_float32():
             logits = self.vgg(x)[-1]
         return int(logits[0].float().argmax())
-

@@ -1,4 +1,6 @@
-"""Stdlib HTTP server over a serving artifact (or in-memory modules).
+"""Stdlib HTTP server over a serving artifact: its programs
+(serving/program.py::ProgramArtifact, no model built), its weights.npz
+read into the port's modules (a JAX artifact), or in-memory modules.
 
 Same endpoints and payload as the JAX package's serving/server.py:
 
@@ -33,8 +35,8 @@ import numpy as np
 import torch
 
 from semantic_pyramid_for_image_generation_torch.data.masks import MaskSchedule
-from semantic_pyramid_for_image_generation_torch.serving.export import (
-    ServingArtifact,
+from semantic_pyramid_for_image_generation_torch.serving.program import (
+    load_artifact,
 )
 
 
@@ -65,9 +67,11 @@ def encode_png(image_m11: np.ndarray) -> bytes:
 
 
 class GenerateService:
-    """Request -> model call plumbing, independent of the HTTP layer."""
+    """Request -> model call plumbing, independent of the HTTP layer, over
+    an artifact reader (`ProgramArtifact` or `ServingArtifact`: `config`,
+    `manifest`, `bucket_for`, `generate`, `classify`)."""
 
-    def __init__(self, artifact: ServingArtifact):
+    def __init__(self, artifact):
         self.artifact = artifact
         self.config = artifact.config
         self.schedule = MaskSchedule(self.config)
@@ -181,5 +185,5 @@ def make_server(service: GenerateService, host: str = "127.0.0.1",
 def serve_artifact(artifact_dir: str, host: str = "127.0.0.1",
                    port: int = 8000,
                    device: str | torch.device = "cuda") -> ThreadingHTTPServer:
-    return make_server(GenerateService(ServingArtifact(artifact_dir, device)),
+    return make_server(GenerateService(load_artifact(artifact_dir, device)),
                        host, port)

@@ -1,7 +1,7 @@
 """The fused G/D train step and the eval-mode generate function.
 
 Counterpart of the JAX package's train/step.py: `ensure_m11_images`,
-`make_train_step` and `make_generate_fn`.
+`make_train_step` and `make_generate_fn` (its body, `generate_nhwc`).
 """
 
 from __future__ import annotations
@@ -270,9 +270,19 @@ def make_generate_fn(generator: Generator, vgg: VGG16) -> Callable:
     def generate(images: torch.Tensor, masks: Sequence[torch.Tensor],
                  labels: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         with no_grad(), exact_float32():
-            features = vgg(_nchw(ensure_m11_images(images)))
-            masks = _float_masks(masks)
-            fakes = generator(noise.float(), features, masks, labels.float())
-            return fakes.permute(0, 2, 3, 1)
+            return generate_nhwc(generator, vgg, images, masks, labels, noise)
 
     return generate
+
+
+def generate_nhwc(generator: Generator, vgg: VGG16, images: torch.Tensor,
+                  masks: Sequence[torch.Tensor], labels: torch.Tensor,
+                  noise: torch.Tensor) -> torch.Tensor:
+    """The body of `make_generate_fn`'s sampler, with no grad mode or
+    numerics of its own (the serving programs of serving/export.py trace
+    it): the VGG pyramid of the images, then the Generator; NHWC in and
+    out."""
+    features = vgg(_nchw(ensure_m11_images(images)))
+    fakes = generator(noise.float(), features, _float_masks(masks),
+                      labels.float())
+    return fakes.permute(0, 2, 3, 1)

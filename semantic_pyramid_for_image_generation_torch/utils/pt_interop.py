@@ -83,6 +83,15 @@ _TO_FLAX = {"conv": lambda a: np.ascontiguousarray(a.transpose(2, 3, 1, 0)),
             "dense": lambda a: np.ascontiguousarray(a.T),
             "same": lambda a: a}
 _COLLECTIONS = ("params", "spectral", "batch_stats")
+# flax -> torch on tensors: the torch layout as a view, then the memory
+# layout the port's modules hold (conv weights channels_last, dense weights
+# contiguous (out, in)), so the values and strides are those of a loaded
+# module's parameter
+_TO_TORCH_TENSOR = {
+    "conv": lambda t: t.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last),
+    "dense": lambda t: t.T.contiguous(),
+    "same": lambda t: t}
 
 
 class _Layout:
@@ -146,6 +155,21 @@ class _Layout:
         for key, collection, path, kind in self.entries:
             sd[key] = (torch.tensor(0) if kind == "counter"
                        else _t(_TO_TORCH[kind](flat[collection][path])))
+        return sd
+
+    def tensors_from_flax(
+            self, variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        """`state_dict_from_flax` on a tree of tensors, in torch ops only
+        (no numpy, no copy to the host): what a traced serving program runs
+        on its weight inputs (serving/export.py). Batch-norm counters are
+        left out."""
+        sd = {}
+        for key, collection, path, kind in self.entries:
+            if kind != "counter":
+                leaf = variables[collection]
+                for name in path.split("/"):
+                    leaf = leaf[name]
+                sd[key] = _TO_TORCH_TENSOR[kind](leaf)
         return sd
 
     def flax_from_state_dict(
@@ -215,11 +239,9 @@ _KINDS: Dict[str, str] = {}
 def _layout_kinds() -> Dict[str, str]:
     """Every G, D and VGG16 state-dict key -> its layout kind."""
     if not _KINDS:
-        for layout in (generator_layout(), discriminator_layout()):
+        for layout in (generator_layout(), discriminator_layout(),
+                       vgg16_layout()):
             _KINDS.update((key, kind) for key, _, _, kind in layout.entries)
-        for key in vgg16_state_dict_keys():
-            _KINDS[key] = ("same" if key.endswith("bias") else
-                           "conv" if ".features." in key else "dense")
     return _KINDS
 
 
@@ -256,20 +278,26 @@ def generator_flax_from_state_dict(
     return generator_layout().flax_from_state_dict(sd)
 
 
+def vgg16_layout() -> _Layout:
+    """The JAX VGG16's params (`features_i/{kernel,bias}`,
+    `classifier_i/...`, one collection "params") against the port's VGG16
+    state dict."""
+    e = _Layout()
+    for prefix, indices, kind in (("features", _VGG_CONVS, "conv"),
+                                  ("classifier", _VGG_FCS, "dense")):
+        for i in indices:
+            e._add(f"vgg16.{prefix}.{i}.weight", "params",
+                   f"{prefix}_{i}/kernel", kind)
+            e._add(f"vgg16.{prefix}.{i}.bias", "params", f"{prefix}_{i}/bias")
+    return e
+
+
 def vgg16_state_dict_from_flax(
         params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX VGG16 params (`features_i/{kernel,bias}`, `classifier_i/...`; a
     {"params": ...} wrapper is accepted) -> the port's VGG16 state dict."""
-    p = _flat(params.get("params", params))
-    sd = {}
-    for i in _VGG_CONVS:
-        sd[f"vgg16.features.{i}.weight"] = _t(
-            p[f"features_{i}/kernel"].transpose(3, 2, 0, 1))
-        sd[f"vgg16.features.{i}.bias"] = _t(p[f"features_{i}/bias"])
-    for i in _VGG_FCS:
-        sd[f"vgg16.classifier.{i}.weight"] = _t(p[f"classifier_{i}/kernel"].T)
-        sd[f"vgg16.classifier.{i}.bias"] = _t(p[f"classifier_{i}/bias"])
-    return sd
+    return vgg16_layout().state_dict_from_flax(
+        {"params": params.get("params", params)})
 
 
 def vgg16_flax_from_state_dict(
@@ -277,24 +305,12 @@ def vgg16_flax_from_state_dict(
     """The inverse bridge: a port VGG16 state dict (`vgg16.*` keys) -> the
     JAX VGG16's params tree (`features_i/{kernel,bias}`, `classifier_i/...`)
     as float32 numpy arrays."""
-    params: Dict[str, Dict[str, np.ndarray]] = {}
-    for i in _VGG_CONVS:
-        params[f"features_{i}"] = {
-            "kernel": _TO_FLAX["conv"](_np(sd[f"vgg16.features.{i}.weight"])),
-            "bias": _np(sd[f"vgg16.features.{i}.bias"])}
-    for i in _VGG_FCS:
-        params[f"classifier_{i}"] = {
-            "kernel": _TO_FLAX["dense"](_np(sd[f"vgg16.classifier.{i}.weight"])),
-            "bias": _np(sd[f"vgg16.classifier.{i}.bias"])}
-    return params
+    return vgg16_layout().flax_from_state_dict(sd)["params"]
 
 
 def vgg16_state_dict_keys() -> list:
     """The 32 keys of the port's (and the reference's) VGG16 state dict."""
-    return [f"vgg16.{layer}.{i}.{w}"
-            for layer, indices in (("features", _VGG_CONVS),
-                                   ("classifier", _VGG_FCS))
-            for i in indices for w in ("weight", "bias")]
+    return [key for key, *_ in vgg16_layout().entries]
 
 
 def load_torch_file(path: str) -> Mapping[str, Any]:

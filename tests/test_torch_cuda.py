@@ -261,6 +261,72 @@ def test_tiny_generate_on_card_matches_cpu(cuda, dtype, atol):
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=atol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_program_on_card_reads_the_planted_weights(cuda, tmp_path, dtype):
+    """A `cuda` serving program (external weights) against the eager
+    modules on the card: the same launches per request (1 attention, 6 max
+    pool, 11 upsample), outputs within 5e-6 in fp32 and two bf16 ulps of
+    the largest output (tanh: 1) in bf16 (the same ops on the same
+    tensors, so bitwise is expected); then the planted fault of
+    tests/torch_program_faults.py: the program on the planted weights.npz
+    gives what eager modules with the shipped sigmas give, and not what
+    the originals give."""
+    import dataclasses
+
+    import numpy as np
+
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.data.masks import (
+        MaskSchedule,
+    )
+    from semantic_pyramid_for_image_generation_torch.models import make_models
+    from semantic_pyramid_for_image_generation_torch.models.layers import (
+        advance_spectral_norm_,
+    )
+    from semantic_pyramid_for_image_generation_torch.serving.export import (
+        ServingArtifact,
+        save_artifact,
+    )
+    from semantic_pyramid_for_image_generation_torch.serving.program import (
+        ProgramArtifact,
+    )
+    from torch_program_faults import eager_on_planted, plant
+
+    cfg = dataclasses.replace(
+        PyramidGANConfig(channels_factor=8, vgg_width_factor=8),
+        compute_dtype=dtype)
+    g, v = make_models(cfg, cuda, torch.Generator(cuda).manual_seed(0))
+    advance_spectral_norm_(g, 10)
+    save_artifact(g, v, str(tmp_path / "art"), (2,), classifier=False)
+    rng = np.random.default_rng(3)
+    schedule = MaskSchedule(cfg)
+    inputs = (rng.uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32),
+              schedule.batch([schedule.inference_masks(lv) for lv in (1, 4)]),
+              np.eye(cfg.num_classes, dtype=np.float32)[[2, 5]],
+              rng.standard_normal((2, cfg.latent_dim)).astype(np.float32))
+
+    def eager(g, v):
+        return ServingArtifact.from_modules(g, v, (2,)).generate(*inputs)
+
+    atol = 5e-6 if dtype == "float32" else 2 * 2 ** -7  # 2 bf16 ulps of 1
+    kernels.reset_launch_counts()
+    got = ProgramArtifact(str(tmp_path / "art"), cuda).generate(*inputs)
+    assert kernels.launch_counts() == {
+        "pooled_kv_attention": 1, "max_pool_2x2": 6, "upsample_2x": 11,
+        "max_pool_2x2_backward": 0, "upsample_2x_backward": 0}
+    original = eager(g, v)
+    torch.testing.assert_close(got, original, rtol=0, atol=atol)
+    plant(str(tmp_path / "art"), str(tmp_path / "planted"))
+    got = ProgramArtifact(str(tmp_path / "planted"), cuda).generate(*inputs)
+    torch.testing.assert_close(
+        got, eager(*eager_on_planted(str(tmp_path / "planted"), cfg, cuda)),
+        rtol=0, atol=atol)
+    assert (got.float() - original.float()).abs().max() > 1e-2
+
+
 def _tie_heavy(shape, dtype, device, seed=0):
     """Post-ReLU values quantized to quarters: most 2x2 windows tie."""
     g = torch.Generator(device).manual_seed(seed)

@@ -10,11 +10,16 @@ parameters, spectral u/v and batch-norm statistics exact (the bridge only
 transposes float32 arrays); the eval sigmas within 1e-6 relative (u^T W v in
 float32, summed in another order). A port write-then-read generates what the
 in-memory modules generate: the weights round-trip exactly, so within 1e-6
-absolute (measured: equal).
+absolute (measured: equal). The artifact holds `torch.export` programs, so
+serving/program.py::load_artifact reads it with ProgramArtifact (the
+programs themselves are held in tests/test_torch_serving_programs.py); the
+same artifact with its programs taken out of the manifest, as a JAX
+artifact has none, is read by the modules reader, `ServingArtifact(path)`.
 """
 
 import json
 import os
+import shutil
 import types
 
 import jax
@@ -41,6 +46,10 @@ from semantic_pyramid_for_image_generation_torch.serving.export import (
     ServingArtifact,
     config_from_manifest,
     save_artifact,
+)
+from semantic_pyramid_for_image_generation_torch.serving.program import (
+    ProgramArtifact,
+    load_artifact,
 )
 from semantic_pyramid_for_image_generation_torch.serving.server import (
     GenerateService,
@@ -107,28 +116,68 @@ def test_manifest(artifact):
     assert manifest["format_version"] == 1
     assert manifest["weights"] == "external" and manifest["classifier"]
     assert manifest["batch_buckets"] == [1, 2]
-    assert manifest["programs"] == [] and "no .jaxexp" in manifest["notes"]
+    assert manifest["platforms"] == ["cpu"]
+    assert manifest["programs"] == [
+        {"file": (f"{entry}_b{b}.cpu.pt2" if b else f"{entry}.cpu.pt2"),
+         "entry": entry, "batch": b,
+         "platform": "cpu"}
+        for entry, b in (("prepare", None), ("generate", 1), ("generate", 2),
+                         ("classify", 1))]
+    assert manifest["torch_version"] == torch.__version__
     assert config_from_manifest(manifest) == CFG
     assert manifest["shapes"]["masks"] == [[None] + list(s)
                                            for s in CFG.mask_shapes]
-    assert sorted(os.listdir(out)) == ["manifest.json", "weights.npz"]
+    assert sorted(os.listdir(out)) == [
+        "classify_b1.cpu.pt2", "generate_b1.cpu.pt2", "generate_b2.cpu.pt2",
+        "manifest.json", "prepare.cpu.pt2", "weights.npz"]
 
 
-def test_write_then_read_generates_what_the_modules_generate(modules,
-                                                             artifact):
-    read = ServingArtifact(artifact[0], device="cpu")
-    live = ServingArtifact.from_modules(*modules, batch_buckets=(1, 2))
-    assert read.buckets == live.buckets == [1, 2]
+def _requests():
     rng = np.random.default_rng(3)
     images = rng.uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32)
     schedule = MaskSchedule(CFG)
     masks = schedule.batch([schedule.inference_masks(4)] * 2)
     labels = np.eye(CFG.num_classes, dtype=np.float32)[[2, 5]]
     noise = rng.standard_normal((2, CFG.latent_dim)).astype(np.float32)
-    got = read.generate(images, masks, labels, noise)
-    want = live.generate(images, masks, labels, noise)
+    return images, masks, labels, noise
+
+
+def test_write_then_read_generates_what_the_modules_generate(modules,
+                                                             artifact):
+    read = load_artifact(artifact[0], device="cpu")
+    assert type(read) is ProgramArtifact
+    live = ServingArtifact.from_modules(*modules, batch_buckets=(1, 2))
+    assert read.buckets == live.buckets == [1, 2]
+    inputs = _requests()
+    got = read.generate(*inputs)
+    want = live.generate(*inputs)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
-    assert read.classify(images[0]) == live.classify(images[0])
+    assert read.classify(inputs[0][0]) == live.classify(inputs[0][0])
+
+
+def test_modules_reader_reads_an_artifact_without_programs(modules, artifact,
+                                                           tmp_path):
+    """The modules reader (JAX artifacts, and port artifacts without
+    programs): the port's artifact with `programs` emptied in its manifest
+    is read by `ServingArtifact(path)` and by `load_artifact`, and serves
+    what the in-memory modules serve, bitwise; the artifact that lists
+    programs is refused by `ServingArtifact(path)`."""
+    with pytest.raises(ValueError, match="load_artifact"):
+        ServingArtifact(artifact[0], device="cpu")
+    path = tmp_path / "no_programs"
+    path.mkdir()
+    shutil.copy(os.path.join(artifact[0], "weights.npz"), path)
+    manifest = dict(artifact[1], programs=[])
+    (path / "manifest.json").write_text(json.dumps(manifest))
+    live = ServingArtifact.from_modules(*modules, batch_buckets=(1, 2))
+    inputs = _requests()
+    want = live.generate(*inputs)
+    for read in (ServingArtifact(str(path), device="cpu"),
+                 load_artifact(str(path), device="cpu")):
+        assert type(read) is ServingArtifact and read.buckets == [1, 2]
+        torch.testing.assert_close(read.generate(*inputs), want, rtol=0,
+                                   atol=0)
+        assert read.classify(inputs[0][0]) == live.classify(inputs[0][0])
 
 
 def test_bridge_round_trip_is_exact(modules):
@@ -150,7 +199,7 @@ def test_export_serving_cli_writes_a_servable_artifact(tmp_path, capsys):
     printed = json.loads(captured.out.strip().splitlines()[-1])
     assert printed["batch_buckets"] == [1, 2]
     assert printed["weights"] == "external"
-    service = GenerateService(ServingArtifact(out, device="cpu"))
+    service = GenerateService(load_artifact(out, device="cpu"))
     assert service.config == PyramidGANConfig(channels_factor=8,
                                               vgg_width_factor=8)
     image = np.random.default_rng(0).uniform(-1, 1, (256, 256, 3)).astype(
