@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
 the fused G/D train step, the Trainer, the VGG-16 fine-tune, data-parallel
-training, the train step's perf modes, sharded training state and the
-serving programs.
+training, the train step's perf modes, sharded training state, the
+serving programs and the evaluation entry points.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -26,7 +26,8 @@ Phases; any failure raises and exits non-zero, before the result lines:
     own fill and copy reach over 128 MiB: the rate a kernel that only
     streams bytes can expect on this card. Last, checked against their
     plain versions and not timed: the three forwards at the Trainer's
-    generate batches (32: validation, 49: the grid), and all five kernels
+    generate batches (32: validation, 49: the grid, 64: phase 14's FID and
+    rehearsal), Kernel 2 at phase 14's VGG eval batch, and all five kernels
     at the sites of every train step the smoke drives, per rank (16 rows in
     bf16 and fp32, 64 and 32 in bf16, 8 in fp32), the loss's fp32 pools
     of the features and masks included, and Kernels 1, 2 and 4 at phase
@@ -180,13 +181,26 @@ Phases; any failure raises and exits non-zero, before the result lines:
     0.005 mean; bitwise or not, said); 8 requests each of eager and
     program timed in turns (median, min-max ms); a profile of one warm bf16
     program request per bucket. The phase's seconds.
-14. The `kernels` JSON line (launches from the train path; the serving,
+14. The evaluation entry points (scripts/). (a) The artifact selftest's
+    main() at full width on stand-ins written to a temporary directory
+    (random VGG-16 .pt files from SEED, the caffe one with the tree's two
+    classes biased up so that its top-5 must read 100%; the random-init
+    Inception's state dict; a Places365 tree of EV_VAL validation JPEGs),
+    with the relaxed expectations of tests/test_artifact_selftest.py: the
+    JSON report (`passed` must be true and all six results there), each
+    evaluation's seconds and launches (per VGG eval batch 5 max pools; per
+    generate 1 / 6 / 11; none in the self-FID). (b) The FID rehearsal's
+    parts: RH_IMAGES images at batch RH_BATCH in bf16, the moments pass
+    (images/s, launches per generate) and the device statistics (seconds,
+    FID), peak GiB. Both run in a fresh process (spawned), as a user runs
+    the scripts, joined within EV_TIMEOUT_S. The phase's seconds.
+15. The `kernels` JSON line (launches from the train path; the serving,
     Trainer, fine-tune, rank-0 (a), perf-mode, sharded rank-0 and program
     paths' as `serving_launches`, `trainer_launches`, `finetune_launches`,
     `parallel_rank_launches`, `perf_mode_launches` (with
     `perf_mode_launches_per_step` per mode), `fsdp_rank_launches`,
-    `program_launches`; Kernels 2 and 4 at the fine-tune's sites as
-    `finetune_batch256`), the card line again, and last the device line.
+    `program_launches`, `selftest_launches`, `rehearsal_launches`; Kernels 2
+    and 4 at the fine-tune's sites as `finetune_batch256`), the card line again, and last the device line.
 
 Imports torch, numpy and the port only; needs one card and no network.
 """
@@ -409,9 +423,10 @@ def upsample_backward_sites(dtype, batch=BATCH):
 def generate_batches():
     """Rows of every generate the smoke's Trainers run: phase 7's validation
     at 2 x 16 and 11 (e)'s CLI validation at 2 x its batch, 12 (c)'s per
-    rank at 2 x its batch over the two ranks, the 7x7 grid."""
+    rank at 2 x its batch over the two ranks, the 7x7 grid; phase 14's
+    selftest FID (one validation batch) and rehearsal batch."""
     return sorted({2 * BATCH, 2 * PM_CLI_BATCH, 2 * FS_CLI_BATCH // DP_WORLD,
-                   49})
+                   49, min(EV_FID_IMAGES, 2 * EV_BATCH), RH_BATCH})
 
 
 def train_site_batches():
@@ -643,6 +658,11 @@ def check_kernels(device) -> dict:
             for dtype in DTYPES:
                 hold(name, specs[name]["sites"](dtype, batch),
                      f"{str(dtype)[6:]} generate batch {batch}")
+    # phase 14's selftest: the VGG-16 eval batches of its accuracies, in the
+    # classifier's default float32
+    hold("max_pool_2x2", [(shape, torch.float32)
+                          for shape in vgg_pools(EV_BATCH)],
+         f"float32 selftest VGG eval batch {EV_BATCH}")
     # every train step the smoke drives, per rank (the train step's own
     # sites: the loss pools in fp32, each backward)
     for batch, dtype in train_site_batches():
@@ -3468,6 +3488,232 @@ def drive_serving_programs(device, card: str) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
     return program_launches
 
+# --------------------------------------------------------------- phase 14 --
+
+EV_BATCH = 32  # (a): the selftest's --batch_size
+EV_VAL = 64  # (a): validation JPEGs (two VGG eval batches, two self-FID halves)
+EV_SELF_FID_IMAGES = EV_BATCH  # (a): per half
+EV_FID_IMAGES = EV_VAL  # (a): one validation batch of 2 x EV_BATCH
+EV_RELAXED = [  # tests/test_artifact_selftest.py's: random weights pass
+    "--expect_top1_before", "50.0", "60.0",
+    "--expect_top5_before", "50.0", "60.0",
+    "--expect_top1_after", "50.0", "60.0",
+    "--expect_top5_after", "50.0", "60.0",
+    "--expect_self_fid_max", "1e9", "--expect_fid_band", "0.0", "1e9"]
+RH_IMAGES = 1024  # (b): the rehearsal's --num
+RH_BATCH = 64  # (b): its --batch
+RH_STAGE = 16  # (b): its --stage
+EV_TIMEOUT_S = 300  # the phase's process (~55 s on the H100)
+
+
+def write_evaluation_standins(root: str, device) -> dict:
+    """(a)'s artifacts: full-width VGG-16 .pt files (random init from SEED;
+    the caffe stand-in with the tree's classes biased up), the random-init
+    Inception's torchvision-named state dict, a Places365 tree."""
+    import os
+
+    from semantic_pyramid_for_image_generation_torch.models.inception import (
+        make_inception,
+    )
+
+    start = time.perf_counter()
+    vgg = {k: v.cpu() for k, v in
+           finetune_model(device, "float32").state_dict().items()}
+    paths = {"vgg": os.path.join(root, "vgg16.pt"),
+             "vgg_caffe": os.path.join(root, "vgg16_caffe.pt"),
+             "inception": os.path.join(root, "inception.pth"),
+             "places": os.path.join(root, "places365_standard")}
+    torch.save(vgg, paths["vgg"])
+    # the caffe stand-in: the tree's two classes lead every image's logits,
+    # so top-5 reads 100% when the labels reach the eval step. Not the FID
+    # run's VGG: fc8 logits of 100 saturate G's fakes, and scipy's sqrtm of
+    # the near-zero covariance product (a random-init Inception) stalled
+    # for minutes (scipy 1.18, the H100 machine's host)
+    vgg["vgg16.classifier.6.bias"][:2] += 100.0
+    torch.save(vgg, paths["vgg_caffe"])
+    del vgg
+    inception = make_inception(device,
+                               rng=torch.Generator(device).manual_seed(SEED))
+    torch.save({k: v.cpu() for k, v in inception.state_dict().items()},
+               paths["inception"])
+    del inception
+    write_places_tree(paths["places"], 4, EV_VAL)
+    print(f"  stand-ins written in {time.perf_counter() - start:.1f} s "
+          f"(VGG-16 {os.path.getsize(paths['vgg']):,} B, Inception "
+          f"{os.path.getsize(paths['inception']):,} B, {EV_VAL} validation "
+          "JPEGs)", flush=True)
+    return paths
+
+
+def drive_selftest(device, root: str) -> dict:
+    """(a) The selftest's main() on the stand-ins, each evaluation timed and
+    its launches read; returns the launches of the whole run."""
+    import contextlib
+    import io
+
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.scripts import (
+        artifact_selftest as selftest,
+    )
+
+    paths = write_evaluation_standins(root, device)
+    runs = []
+
+    def timed(name, fn):
+        def run(*args):
+            before = kernels.launch_counts()
+            start = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            runs.append((name, time.perf_counter() - start,
+                         {k: after[k] - before[k] for k in after}))
+            return out
+        return run
+
+    argv = ["--places", paths["places"], "--vgg_pt", paths["vgg_caffe"],
+            "--vgg_finetuned_pt", paths["vgg"],
+            "--inception_pt", paths["inception"],
+            "--batch_size", str(EV_BATCH), "--num_workers", "8",
+            "--fid_images", str(EV_FID_IMAGES),
+            "--self_fid_images", str(EV_SELF_FID_IMAGES),
+            "--device", device.type] + EV_RELAXED
+    originals = {name: getattr(selftest, name) for name in
+                 ("run_vgg_accuracy", "run_self_fid", "run_fid")}
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(contextlib.chdir(root))  # the Trainer's run dirs
+        for name, fn in originals.items():
+            stack.callback(setattr, selftest, name, fn)
+            setattr(selftest, name, timed(name, fn))
+        stack.enter_context(contextlib.redirect_stdout(out))
+        rc = selftest.main(argv)
+    counts = kernels.launch_counts()
+    total_s = time.perf_counter() - start
+    for line in out.getvalue().strip().splitlines():
+        print(f"  | {line}", flush=True)
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0 or report["passed"] is not True or report["ready"] is not True:
+        raise AssertionError(f"the selftest failed (rc {rc}): {report}")
+    if set(report["results"]) != {
+            "vgg_top1_before", "vgg_top5_before", "vgg_top1_after",
+            "vgg_top5_after", "self_fid", "fid"} or \
+            report["results"]["vgg_top5_before"] != 100.0:
+        raise AssertionError(f"selftest results {report['results']}")
+    vgg_batches = -(-EV_VAL // EV_BATCH)
+    generates = -(-EV_FID_IMAGES // (2 * EV_BATCH))
+    want = {"run_vgg_accuracy": {k: 5 * vgg_batches if k == "max_pool_2x2"
+                                 else 0 for k in GENERATE_LAUNCHES},
+            "run_self_fid": {k: 0 for k in GENERATE_LAUNCHES},
+            "run_fid": {k: generates * n for k, n in
+                        GENERATE_LAUNCHES.items()}}
+    for name, seconds, delta in runs:
+        print(f"  {name}: {seconds:.2f} s, launches {delta} (expected "
+              f"{want[name]})", flush=True)
+        if delta != want[name]:
+            raise AssertionError(f"{name} launched {delta}, expected "
+                                 f"{want[name]}")
+    if [name for name, *_ in runs] != ["run_vgg_accuracy", "run_vgg_accuracy",
+                                       "run_self_fid", "run_fid"]:
+        raise AssertionError(f"the selftest ran {runs}")
+    print(f"  selftest main(): {total_s:.2f} s, passed", flush=True)
+    return counts
+
+
+def drive_rehearsal(device) -> dict:
+    """(b) The FID rehearsal's parts at RH_IMAGES images, bf16: the moments
+    pass and the device statistics; returns the pass's launches."""
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.scripts import (
+        fid_rehearsal as rehearsal,
+    )
+
+    start = time.perf_counter()
+    config = PyramidGANConfig(compute_dtype="bfloat16")
+    generate_fn, evaluator = rehearsal.build(config, device)
+    n_batches = -(-RH_IMAGES // RH_BATCH)
+    staged = rehearsal.stage_batches(config, RH_BATCH,
+                                     min(n_batches, RH_STAGE), device,
+                                     np.random.default_rng(0))
+    rehearsal.moments_pass(generate_fn, evaluator, staged, 1,
+                           rehearsal.latent_stream(config, RH_BATCH, device))
+    torch.cuda.synchronize()
+    print(f"  rehearsal setup and first batch "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    n, totals = rehearsal.moments_pass(
+        generate_fn, evaluator, staged, n_batches,
+        rehearsal.latent_stream(config, RH_BATCH, device))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = kernels.launch_counts()
+    fid, device_s = rehearsal.device_statistics(n, totals)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: n_batches * v for k, v in GENERATE_LAUNCHES.items()}
+    print(f"  rehearsal: {n} images at batch {RH_BATCH} (bf16) in {wall:.3f} "
+          f"s, {2 * n / wall:.1f} images/s (real + fake); device statistics "
+          f"{device_s:.4f} s (FID {fid:.6g}, random-init Inception); peak "
+          f"{peak:.2f} GiB; launches {counts} (expected {want})", flush=True)
+    if n != n_batches * RH_BATCH or not np.isfinite(fid):
+        raise AssertionError(f"rehearsal: {n} images, FID {fid}")
+    if counts != want:
+        raise AssertionError(f"the rehearsal launched {counts}, expected "
+                             f"{want}")
+    return counts
+
+
+def evaluation_child(workdir: str, device_type: str) -> None:
+    """Phase 14 in a fresh process (spawned), as a user runs the scripts:
+    (a) in `workdir`, then (b); the launches of each go to
+    `workdir/child.json`. Past EV_TIMEOUT_S - 30 s it dumps every thread's
+    stack to stderr, so a stall shows where it stands."""
+    import faulthandler
+    import os
+
+    faulthandler.dump_traceback_later(EV_TIMEOUT_S - 30)
+    device = torch.device(device_type)
+    counts = {"selftest": drive_selftest(device, workdir)}
+    torch.cuda.empty_cache()
+    counts["rehearsal"] = drive_rehearsal(device)
+    with open(os.path.join(workdir, "child.json"), "w") as f:
+        json.dump(counts, f)
+    faulthandler.cancel_dump_traceback_later()
+
+
+def drive_evaluation_entry_points(device) -> dict:
+    """Phase 14: (a) and (b) in a spawned process, joined within
+    EV_TIMEOUT_S (killed and failed past it); the launches of each. The
+    host's load average and this process's threads are printed first: the
+    host statistics are a CPU sqrtm, slowed by whatever else runs."""
+    import os
+    import tempfile
+    import threading
+
+    import torch.multiprocessing as mp
+
+    print(f"  host load average {os.getloadavg()}, {os.cpu_count()} CPUs; "
+          f"{threading.active_count()} threads in this process", flush=True)
+    with tempfile.TemporaryDirectory() as root:
+        proc = mp.get_context("spawn").Process(target=evaluation_child,
+                                               args=(root, device.type))
+        proc.start()
+        proc.join(EV_TIMEOUT_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            raise AssertionError(f"phase 14 ran past {EV_TIMEOUT_S} s")
+        if proc.exitcode != 0:
+            raise AssertionError(f"phase 14's process exited {proc.exitcode}")
+        with open(os.path.join(root, "child.json")) as f:
+            return json.load(f)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3598,6 +3844,15 @@ def main() -> int:
                                  "times")
         kernels[name]["program_launches"] = count
     print(f"  phase 13 took {time.perf_counter() - start:.1f} s", flush=True)
+
+    print("[14] evaluation entry points: the artifact selftest at full width "
+          "on stand-ins, the FID rehearsal's parts", flush=True)
+    start = time.perf_counter()
+    evaluation = drive_evaluation_entry_points(device)
+    for path, counts in evaluation.items():
+        for name, count in counts.items():
+            kernels[name][f"{path}_launches"] = count
+    print(f"  phase 14 took {time.perf_counter() - start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line())

@@ -103,8 +103,11 @@ class PyramidGANConfig:
             self, channels_factor=8.0, vgg_width_factor=8, num_classes=16)
 
 
-# Training defaults of the reference (learning rate; weights of the semantic
-# reconstruction and diversity losses), as the JAX package's config has them.
+# Training defaults of the reference (batch size, learning rate, weights of
+# the semantic reconstruction and diversity losses, validation images of a
+# FID), as the JAX package's config has them.
+DEFAULT_BATCH_SIZE = 20
 DEFAULT_LR = 1e-5
 DEFAULT_W_REC = 0.1
 DEFAULT_W_DIV = 0.1
+DEFAULT_FID_VAL_IMAGES = 6000

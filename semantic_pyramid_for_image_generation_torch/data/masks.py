@@ -121,3 +121,35 @@ class MaskSchedule:
         """Stack per-sample mask lists into a 7-element batched list."""
         return [np.stack([s[i] for s in per_sample], axis=0)
                 for i in range(len(self.shapes))]
+
+
+# Functional forms of the reference's mask API (misc.py), as the JAX
+# package's data/masks.py has them: a numpy Generator with the same seed gives
+# the same arrays.
+_DEFAULT = MaskSchedule()
+
+
+def get_masks_for_training(rng: Optional[np.random.Generator] = None,
+                           schedule: MaskSchedule = _DEFAULT
+                           ) -> List[np.ndarray]:
+    rng = np.random.default_rng() if rng is None else rng
+    return schedule.training_masks(rng)
+
+
+def get_masks_for_validation(rng: Optional[np.random.Generator] = None,
+                             schedule: MaskSchedule = _DEFAULT
+                             ) -> List[np.ndarray]:
+    rng = np.random.default_rng() if rng is None else rng
+    return schedule.validation_masks(rng)
+
+
+def get_masks_for_inference(stage_index: int,
+                            schedule: MaskSchedule = _DEFAULT,
+                            batch: Optional[int] = None) -> List[np.ndarray]:
+    """The one-hot masks of `stage_index` (deep -> shallow), with a leading
+    batch axis of `batch` rows when it is given."""
+    masks = schedule.inference_masks(stage_index)
+    if batch is not None:
+        masks = [np.broadcast_to(m[None], (batch,) + m.shape).copy()
+                 for m in masks]
+    return masks

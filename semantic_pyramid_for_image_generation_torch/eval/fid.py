@@ -78,6 +78,14 @@ def fid_from_statistics(mu_real: np.ndarray, cov_real: np.ndarray,
                  - 2.0 * np.trace(cov_mean))
 
 
+def fid_from_activations(real: np.ndarray, fake: np.ndarray) -> float:
+    """The FID of two (N, D) activation arrays: their means and unbiased
+    covariances (np.cov), then the host formula."""
+    mu_r, cov_r = np.mean(real, axis=0), np.cov(real, rowvar=False)
+    mu_f, cov_f = np.mean(fake, axis=0), np.cov(fake, rowvar=False)
+    return fid_from_statistics(mu_r, cov_r, mu_f, cov_f)
+
+
 def statistics_from_moments(n: float, s1, s2) -> Tuple[np.ndarray, np.ndarray]:
     """(count, sum, sum of outer products) -> (mean, unbiased covariance), in
     float64 on the host: the single-pass cancellation s2 - n mu mu^T in

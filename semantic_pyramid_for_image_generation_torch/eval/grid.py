@@ -2,10 +2,13 @@
 eval/grid.py: per-sample min-max to [0, 1], then tiling with 2px padding like
 torchvision.utils.save_image defaults. PIL is imported only to write PNGs.
 `sweep_masks` and `sweep_stack` lay a whole sweep out as one level-major
-batch and back in grid order (the Trainer's one 49-row generate).
+batch and back in grid order (the Trainer's one 49-row generate);
+`render_mask_sweep` builds the grid's stack one cell at a time.
 """
 
 from __future__ import annotations
+
+from typing import Callable, List
 
 import numpy as np
 
@@ -64,3 +67,18 @@ def save_inference_grid(
     if grid.shape[-1] == 1:
         grid = grid[..., 0]
     Image.fromarray(grid).save(path)
+
+
+def render_mask_sweep(
+    generate_cell: Callable[[int, int], np.ndarray],
+    num_images: int = 7,
+    num_levels: int = 7,
+) -> np.ndarray:
+    """The (num_images * num_levels, H, W, C) stack of
+    `generate_cell(image, level)` in the reference's order: row = image,
+    column = mask level."""
+    cells: List[np.ndarray] = []
+    for i in range(num_images):
+        for level in range(num_levels):
+            cells.append(np.asarray(generate_cell(i, level)))
+    return np.stack(cells, axis=0)

@@ -1,4 +1,7 @@
-"""The Generator, the Discriminator and the frozen VGG-16 pyramid."""
+"""The Generator, the Discriminator and the frozen VGG-16 pyramid, their
+layers (the names the JAX package's models/__init__.py exports; its SNConv
+and SNDense are the port's SNConv2d and SNLinear), and `make_models` /
+`make_discriminator`."""
 
 from __future__ import annotations
 
@@ -13,10 +16,23 @@ from semantic_pyramid_for_image_generation_torch.models.discriminator import (
 from semantic_pyramid_for_image_generation_torch.models.generator import (
     Generator,
 )
-from semantic_pyramid_for_image_generation_torch.models.layers import (
+from semantic_pyramid_for_image_generation_torch.models.layers import (  # noqa: F401
+    BatchNorm,
+    ConditionalBatchNorm,
+    DiscriminatorInputResidualBlock,
+    DiscriminatorResidualBlock,
+    GeneratorResidualBlock,
+    LinearBlock,
+    SelfAttention,
+    SNConv2d,
+    SNEmbedding,
+    SNLinear,
     initialize_,
 )
 from semantic_pyramid_for_image_generation_torch.models.vgg16 import VGG16
+
+SNConv = SNConv2d  # the JAX package's names for the spectral-norm layers
+SNDense = SNLinear
 
 
 def make_models(config: PyramidGANConfig, device: torch.device,

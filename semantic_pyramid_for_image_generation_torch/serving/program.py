@@ -28,8 +28,13 @@ whose manifest lists programs goes to `ProgramArtifact`, one that lists
 none (a JAX package artifact) to the modules reader,
 serving/export.py::ServingArtifact.
 
-A program is read on the torch that wrote it (`torch_version` in the
-manifest): `torch.export`'s format is not promised across versions.
+A program is read only on a torch of the same major.minor version as the
+one that wrote it (`torch_version` in the manifest): `torch.export`'s
+format is not promised across versions, so `ProgramArtifact` refuses any
+other with an error that names both versions and the
+`cli/export_serving.py` command that writes the programs anew. An artifact
+without programs (a JAX package artifact: `weights.npz` only) carries no
+torch version and goes on to the modules reader.
 """
 
 from __future__ import annotations
@@ -62,6 +67,42 @@ def read_manifest(path: str) -> dict:
         raise ValueError(f"artifact format {manifest['format_version']} "
                          f"!= supported {FORMAT_VERSION}")
     return manifest
+
+
+def major_minor(version: str) -> tuple:
+    """(major, minor) of a torch version string such as '2.11.0+cu128'."""
+    major, minor = version.split("+")[0].split(".")[:2]
+    return int(major), int(minor)
+
+
+def export_command(path: str, manifest: dict) -> str:
+    """The cli/export_serving.py command that writes the artifact's programs
+    again, from the files its weights came from."""
+    config = manifest["config"]
+    return (
+        "python -m semantic_pyramid_for_image_generation_torch.cli."
+        f"export_serving --out {path} --batch_sizes "
+        f"{','.join(str(b) for b in manifest['batch_buckets'])} "
+        f"--platforms {','.join(manifest['platforms'])} "
+        f"--weights {manifest['weights']} "
+        f"--{'' if manifest['classifier'] else 'no-'}classifier "
+        f"--dtype {config['compute_dtype']} "
+        f"--channel_factor {config['channels_factor']} "
+        f"--vgg_width_factor {config['vgg_width_factor']} "
+        "--load_checkpoint <G checkpoint .pt> "
+        "--load_pretrained_vgg16 <VGG-16 .pt>")
+
+
+def check_torch_version(path: str, manifest: dict) -> None:
+    """Raise unless the programs were written on this torch's major.minor."""
+    written = manifest.get("torch_version", "unknown")
+    running = torch.__version__
+    if written == "unknown" or major_minor(written) != major_minor(running):
+        raise ValueError(
+            f"{path}: its programs were written by torch {written} and this "
+            f"is torch {running}; torch.export programs are read only on "
+            "the torch major.minor that wrote them. Write them again on "
+            f"this torch: {export_command(path, manifest)}")
 
 
 def config_from_manifest(manifest: dict) -> PyramidGANConfig:
@@ -138,6 +179,7 @@ class ProgramArtifact:
 
     def __init__(self, path: str, device: str | torch.device = "cuda"):
         self.manifest = read_manifest(path)
+        check_torch_version(path, self.manifest)
         self.device = resolve_device(device)  # cuda without a card raises
         platform = self.device.type
         programs = [p for p in self.manifest.get("programs", [])

@@ -72,7 +72,9 @@ from semantic_pyramid_for_image_generation_torch.serving.export import (
 )
 from semantic_pyramid_for_image_generation_torch.serving.program import (
     ProgramArtifact,
+    check_torch_version,
     load_artifact,
+    major_minor,
 )
 from semantic_pyramid_for_image_generation_torch.serving.server import (
     GenerateService,
@@ -536,3 +538,54 @@ def test_custom_op_registration(op, args, dtype):
     strides of the CPU implementation's output), autograd registration and
     the op under AOT dispatch, against the plain version on the CPU."""
     torch.library.opcheck(op, args(torch.Generator().manual_seed(0), dtype))
+
+
+def _other_minor(version: str) -> str:
+    major, minor = major_minor(version)
+    return f"{major}.{minor + 1 if minor < 11 else minor - 1}.0+cu128"
+
+
+@pytest.mark.parametrize("weights", ["external", "baked"])
+def test_program_from_another_torch_is_refused(artifacts, tmp_path, weights):
+    """A manifest whose torch_version has another major.minor (a program
+    written on the card's torch read on this host's, or the other way) is
+    refused, naming both versions and the command that writes the programs
+    again; the programs are not read."""
+    path = tmp_path / "art"
+    shutil.copytree(artifacts["float32", weights], path)
+    manifest = json.loads((path / "manifest.json").read_text())
+    written = _other_minor(torch.__version__)
+    manifest["torch_version"] = written
+    (path / "manifest.json").write_text(json.dumps(manifest))
+    for read in (ProgramArtifact, load_artifact):
+        with pytest.raises(ValueError) as refused:
+            read(str(path), "cpu")
+        message = str(refused.value)
+        for part in (written, torch.__version__, "cli.export_serving",
+                     "--batch_sizes 1,2", "--platforms cpu",
+                     f"--weights {weights}", "--dtype float32"):
+            assert part in message, part
+
+
+@pytest.mark.parametrize("written,accepted", [
+    ("{same}", True), ("{major}.{minor}.99", True),
+    ("{major}.{minor}.0+cu128", True), ("{major}.{next}.0", False),
+    ("{prev_major}.{minor}.0", False), ("unknown", False)])
+def test_torch_version_rule(written, accepted):
+    """The rule on its own: same major.minor is read (patch and local build
+    may differ), anything else raises, and so does a manifest without a
+    torch_version."""
+    major, minor = major_minor(torch.__version__)
+    written = written.format(same=torch.__version__, major=major, minor=minor,
+                             next=minor + 1, prev_major=major - 1)
+    manifest = {"torch_version": written, "batch_buckets": [1],
+                "platforms": ["cuda"], "weights": "external",
+                "classifier": True,
+                "config": dataclasses.asdict(PyramidGANConfig())}
+    if written == "unknown":
+        del manifest["torch_version"]
+    if accepted:
+        check_torch_version("art", manifest)
+    else:
+        with pytest.raises(ValueError, match="torch major.minor"):
+            check_torch_version("art", manifest)
