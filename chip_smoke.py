@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
 the fused G/D train step, the Trainer, the VGG-16 fine-tune, data-parallel
 training, the train step's perf modes, sharded training state, the
-serving programs and the evaluation entry points.
+serving programs and the evaluation and training entry points.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -194,13 +194,30 @@ Phases; any failure raises and exits non-zero, before the result lines:
     (images/s, launches per generate) and the device statistics (seconds,
     FID), peak GiB. Both run in a fresh process (spawned), as a user runs
     the scripts, joined within EV_TIMEOUT_S. The phase's seconds.
-15. The `kernels` JSON line (launches from the train path; the serving,
-    Trainer, fine-tune, rank-0 (a), perf-mode, sharded rank-0 and program
-    paths' as `serving_launches`, `trainer_launches`, `finetune_launches`,
-    `parallel_rank_launches`, `perf_mode_launches` (with
-    `perf_mode_launches_per_step` per mode), `fsdp_rank_launches`,
-    `program_launches`, `selftest_launches`, `rehearsal_launches`; Kernels 2
-    and 4 at the fine-tune's sites as `finetune_batch256`), the card line again, and last the device line.
+15. The training entry points (scripts/). (a) The long run's run() at full
+    width in bf16 on a JPEG tree it builds in a temporary directory
+    (LR_PER_CLASS x 2 classes, 16 x 2 validation JPEGs): cli/main.py with
+    the compact feed and 16 loader threads, 2 epochs of 2 steps of 64, the
+    start-of-run validation, 3 grids and 2 checkpoints; its output, the
+    summary (finite, its steps and files) and launches exactly 4 steps' and
+    4 generates' (worked out from Trainer.train). (b) One batch of that
+    tree through Places365Loader in the compact and the float feed: the
+    uint8 batch reaches the card as uint8, ensure_m11_images normalizes it
+    there in float32, within CF_TOLERANCE of the float batch; masks and
+    labels equal. (c) The loader scaling bench's run() at workers 1 and 8
+    on 128 JPEGs: its rows and summary (`mask_route`, the card's bf16
+    batch-64 step rate), launches exactly 7 train steps'. All in a fresh
+    process (spawned), joined within TR_TIMEOUT_S. The phase's seconds and
+    the smoke's.
+16. The `kernels` JSON line (launches from the train path; the serving,
+    Trainer, fine-tune, rank-0 (a), perf-mode, sharded rank-0, program,
+    evaluation and training-script paths' as `serving_launches`,
+    `trainer_launches`, `finetune_launches`, `parallel_rank_launches`,
+    `perf_mode_launches` (with `perf_mode_launches_per_step` per mode),
+    `fsdp_rank_launches`, `program_launches`, `selftest_launches`,
+    `rehearsal_launches`, `long_run_launches`, `loader_bench_launches`;
+    Kernels 2 and 4 at the fine-tune's sites as `finetune_batch256`), the
+    card line again, and last the device line.
 
 Imports torch, numpy and the port only; needs one card and no network.
 """
@@ -238,13 +255,6 @@ GENERATE_LAUNCHES = {  # per eval generate (VGG pyramid, then G)
 # PERF_MODE_LAUNCHES (`parallel_helpers()`), which the CPU tests use
 TRAINER_STEPS = 4  # phase 7: training batches of BATCH
 VALIDATION_BATCHES = 2  # phase 7: validation batches of 2 * BATCH
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout
-    return out.strip().splitlines()[0]
 
 
 def time_ms(fn, reps: int = 21, inner: int = 10) -> float:
@@ -424,9 +434,12 @@ def generate_batches():
     """Rows of every generate the smoke's Trainers run: phase 7's validation
     at 2 x 16 and 11 (e)'s CLI validation at 2 x its batch, 12 (c)'s per
     rank at 2 x its batch over the two ranks, the 7x7 grid; phase 14's
-    selftest FID (one validation batch) and rehearsal batch."""
+    selftest FID (one validation batch) and rehearsal batch; phase 15's
+    long-run validation (its 32 FID images in one batch) and the
+    full-default long run's validation batch of 2 x 64."""
     return sorted({2 * BATCH, 2 * PM_CLI_BATCH, 2 * FS_CLI_BATCH // DP_WORLD,
-                   49, min(EV_FID_IMAGES, 2 * EV_BATCH), RH_BATCH})
+                   49, min(EV_FID_IMAGES, 2 * EV_BATCH), RH_BATCH,
+                   LR_VALIDATION_ROWS, LR_FULL_VALIDATION_ROWS})
 
 
 def train_site_batches():
@@ -436,7 +449,8 @@ def train_site_batches():
     one-process reference of 10 (b) at 16 in fp32; phase 11 (a) at 64 in
     bf16, (c) and (d) at 8 in fp32, (e)'s CLI in bf16 at its batch; a rank
     of phase 12 (a) at 32 in bf16 and of (b) at 8 in fp32, of (c)'s CLI at
-    its batch over the two ranks in bf16."""
+    its batch over the two ranks in bf16; phase 15's long run and loader
+    bench at 64 in bf16."""
     return list(dict.fromkeys([
         (BATCH, torch.bfloat16), (BATCH, torch.float32),
         (NCCL_BATCH, torch.bfloat16),
@@ -445,7 +459,8 @@ def train_site_batches():
         (DP_FP32_BATCH, torch.float32),
         (PM_BATCH, torch.bfloat16), (PM_FP32_BATCH, torch.float32),
         (PM_CLI_BATCH, torch.bfloat16),
-        (FS_CLI_BATCH // DP_WORLD, torch.bfloat16)]))
+        (FS_CLI_BATCH // DP_WORLD, torch.bfloat16),
+        (LR_BATCH, torch.bfloat16)]))
 
 
 def fused_d_site_batches():
@@ -3715,13 +3730,232 @@ def drive_evaluation_entry_points(device) -> dict:
             return json.load(f)
 
 
+# --------------------------------------------------------------- phase 15 --
+
+LR_BATCH = 64  # (a): the long run's --batch
+LR_PER_CLASS = 64  # (a): training JPEGs per class, 2 epochs of 2 steps
+LR_ARGV = ["--classes", "2", "--batch", str(LR_BATCH), "--steps", "4",
+           "--validate_every_steps", "1000000"]  # (a): no mid-run validation
+LR_VALIDATION_ROWS = 2 * 16  # (a): 2 classes x 16 validation JPEGs, one batch
+LR_FULL_VALIDATION_ROWS = 2 * LR_BATCH  # the full-default run's val batch
+CF_TOLERANCE = 1e-6  # (b): the /255 cancels in the min-max
+LB_ARGV = ["--workers", "1,8", "--images", "128"]  # (c)
+TR_TIMEOUT_S = 300  # the phase's process
+
+
+def long_run_generates(args, epochs: int) -> int:
+    """Generates of a long run, from Trainer.train: the start-of-run grid
+    and validation, each mid-run validation and its grid, one grid per
+    epoch; a validation is one generate per validation batch (2 x batch
+    rows) of its FID images."""
+    from semantic_pyramid_for_image_generation_torch.scripts import long_run
+
+    fid_images = args.classes * long_run.VAL_PER_CLASS
+    per_validation = -(-fid_images // (2 * args.batch))
+    validations = args.steps // args.validate_every_steps
+    return (1 + per_validation) * (1 + validations) + epochs
+
+
+def drive_long_run(device, root: str) -> dict:
+    """(a) scripts/long_run.py's run() at full width, bf16, per_class
+    LR_PER_CLASS, LR_ARGV: its output prefixed `  | `, the summary checked
+    (finite, its steps, its files, 2 checkpoints), launches exactly the
+    steps' and the generates'. Returns the launches."""
+    import contextlib
+    import glob
+    import io
+    import os
+
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.scripts import long_run
+
+    args = long_run.build_parser().parse_args(LR_ARGV + [
+        "--data_dir", os.path.join(root, "data"),
+        "--save_dir", os.path.join(root, "sd"),
+        "--out", os.path.join(root, "out"), "--device", device.type])
+    epochs = long_run.epochs_for(args.steps, args.classes, args.batch,
+                                 LR_PER_CLASS)
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        summary = long_run.run(args, per_class=LR_PER_CLASS)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    seconds = time.perf_counter() - start
+    for line in out.getvalue().strip().splitlines():
+        print(f"  | {line}", flush=True)
+    generates = long_run_generates(args, epochs)
+    want = {k: args.steps * TRAIN_LAUNCHES[k] + generates * n
+            for k, n in GENERATE_LAUNCHES.items()}
+    print(f"  (a) long run, {args.steps} steps of {args.batch} in {epochs} "
+          f"epochs, {generates} generates: {seconds:.1f} s with the tree, "
+          f"{summary['img_per_sec_end_to_end']} images/s end to end; "
+          f"launches {counts} (expected {want})", flush=True)
+    checkpoints = sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(args.save_dir, "models_*", "checkpoint_*.pt")))
+    files = [os.path.join(args.out, name) for name in
+             summary["grids_kept"] + ["loss_curves.png", "summary.json"]]
+    if summary["all_finite"] is not True or summary["steps"] != args.steps \
+            or summary["samples"] != args.steps * args.batch \
+            or len(summary["grids_kept"]) != 3 \
+            or not all(os.path.getsize(f) > 0 for f in files) \
+            or len(checkpoints) != epochs:
+        raise AssertionError(f"long run: summary {summary}, checkpoints "
+                             f"{checkpoints}")
+    if counts != want:
+        raise AssertionError(f"the long run launched {counts}, expected "
+                             f"{want}")
+    return counts
+
+
+def check_compact_feed(device, root: str) -> None:
+    """(b) One JPEG batch of (a)'s tree through Places365Loader, compact and
+    float: the uint8 batch copied to the card as uint8 and normalized there
+    (train/step.py::ensure_m11_images, float32) against the float32 batch
+    copied up; the masks and labels equal."""
+    import os
+
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.data.places365 import (
+        Places365,
+        Places365Loader,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.step import (
+        batch_to_device,
+        ensure_m11_images,
+    )
+
+    data = os.path.join(root, "data")
+    config = PyramidGANConfig(compute_dtype="bfloat16")
+
+    def first(compact: bool) -> dict:
+        loader = Places365Loader(Places365(data, "train.txt", config),
+                                 batch_size=LR_BATCH, num_workers=16,
+                                 compact_feed=compact)
+        return batch_to_device(next(iter(loader)), device)
+
+    compact, full = first(True), first(False)
+    images = compact["images"]
+    if images.dtype != torch.uint8 or images.device.type != device.type:
+        raise AssertionError(f"the compact batch reached the card as "
+                             f"{images.dtype} on {images.device}")
+    m11 = ensure_m11_images(images)
+    if m11.dtype != torch.float32 or full["images"].dtype != torch.float32:
+        raise AssertionError(f"ensure_m11_images gave {m11.dtype}")
+    delta = (m11 - full["images"]).abs()
+    masks = all(torch.equal(c.float(), f) for c, f in
+                zip(compact["masks"], full["masks"]))
+    labels = torch.equal(compact["labels"], full["labels"])
+    print(f"  (b) compact feed against float feed, {tuple(images.shape)} "
+          f"uint8 on the card: ensure_m11_images max |difference| "
+          f"{delta.max().item():.3g} (mean {delta.mean().item():.3g}; "
+          f"tolerance {CF_TOLERANCE:g}); masks equal {masks} "
+          f"({compact['masks'][0].dtype} against {full['masks'][0].dtype}); "
+          f"labels equal {labels}", flush=True)
+    if delta.max().item() > CF_TOLERANCE or not masks or not labels:
+        raise AssertionError("the compact feed disagrees with the float feed")
+
+
+def drive_loader_bench(device) -> dict:
+    """(c) scripts/loader_scaling_bench.py's run() with LB_ARGV at full
+    width: its rows and summary prefixed `  | `, launches exactly the train
+    steps' of the bench's defaults (bench.WARMUP + bench.STEPS). Returns
+    the launches."""
+    import contextlib
+    import io
+
+    from semantic_pyramid_for_image_generation_torch.config import (
+        PyramidGANConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.scripts import (
+        loader_scaling_bench as bench,
+    )
+
+    args = bench.build_parser().parse_args(LB_ARGV + ["--device",
+                                                      device.type])
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rows, summary = bench.run(args, PyramidGANConfig())
+    counts = kernels.launch_counts()
+    for line in out.getvalue().strip().splitlines():
+        print(f"  | {line}", flush=True)
+    want = {k: (bench.WARMUP + bench.STEPS) * n
+            for k, n in TRAIN_LAUNCHES.items()}
+    rate = summary["device_rate_to_beat_img_per_s"]
+    print(f"  (c) loader bench {time.perf_counter() - start:.1f} s: mask "
+          f"route {summary['mask_route']}, the card's bf16 batch-{args.batch} "
+          f"step rate {rate} images/s, loader at {rows[-1]['num_workers']} "
+          f"workers {rows[-1]['loader_img_per_s']} images/s; launches "
+          f"{counts} (expected {want})", flush=True)
+    if not (np.isfinite(rate) and rate > 0) or len(rows) != 2:
+        raise AssertionError(f"loader bench: {rows} {summary}")
+    if counts != want:
+        raise AssertionError(f"the loader bench launched {counts}, expected "
+                             f"{want}")
+    return counts
+
+
+def training_child(workdir: str, device_type: str) -> None:
+    """Phase 15 in a fresh process (spawned), as a user runs the scripts:
+    (a), (b) and (c) in `workdir`; the launches of (a) and (c) go to
+    `workdir/child.json`. Past TR_TIMEOUT_S - 30 s it dumps every thread's
+    stack to stderr."""
+    import faulthandler
+    import os
+
+    faulthandler.dump_traceback_later(TR_TIMEOUT_S - 30)
+    device = torch.device(device_type)
+    counts = {}
+    counts["long_run"] = drive_long_run(device, workdir)
+    check_compact_feed(device, workdir)
+    torch.cuda.empty_cache()
+    counts["loader_bench"] = drive_loader_bench(device)
+    with open(os.path.join(workdir, "child.json"), "w") as f:
+        json.dump(counts, f)
+    faulthandler.cancel_dump_traceback_later()
+
+
+def drive_training_entry_points(device) -> dict:
+    """Phase 15: (a), (b) and (c) in a spawned process, joined within
+    TR_TIMEOUT_S (killed and failed past it); the launches of (a) and
+    (c)."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as root:
+        proc = mp.get_context("spawn").Process(target=training_child,
+                                               args=(root, device.type))
+        proc.start()
+        proc.join(TR_TIMEOUT_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            raise AssertionError(f"phase 15 ran past {TR_TIMEOUT_S} s")
+        if proc.exitcode != 0:
+            raise AssertionError(f"phase 15's process exited {proc.exitcode}")
+        with open(os.path.join(root, "child.json")) as f:
+            return json.load(f)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs an NVIDIA "
               "GPU", file=sys.stderr)
         return 2
+    smoke_start = time.perf_counter()
     device = torch.device("cuda")
     from semantic_pyramid_for_image_generation_torch.ops.cuda import build
+    from semantic_pyramid_for_image_generation_torch.utils.device import (
+        card_line,
+    )
 
     card = card_line()
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA "
@@ -3853,6 +4087,17 @@ def main() -> int:
         for name, count in counts.items():
             kernels[name][f"{path}_launches"] = count
     print(f"  phase 14 took {time.perf_counter() - start:.1f} s", flush=True)
+
+    print("[15] training entry points: a short long run at full width fed "
+          "from JPEGs, the compact feed against the float feed, the loader "
+          "scaling bench", flush=True)
+    start = time.perf_counter()
+    training = drive_training_entry_points(device)
+    for path, counts in training.items():
+        for name, count in counts.items():
+            kernels[name][f"{path}_launches"] = count
+    print(f"  phase 15 took {time.perf_counter() - start:.1f} s; the smoke "
+          f"{time.perf_counter() - smoke_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line())

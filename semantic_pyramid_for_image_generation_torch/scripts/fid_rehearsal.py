@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from typing import Callable, Dict, List, Sequence, Tuple
@@ -53,6 +52,7 @@ from semantic_pyramid_for_image_generation_torch.train.step import (
     make_generate_fn,
 )
 from semantic_pyramid_for_image_generation_torch.utils.device import (
+    card_line,
     resolve_device,
 )
 
@@ -149,13 +149,6 @@ def device_statistics(n: int, totals: Moments) -> Tuple[float, float]:
     start = time.perf_counter()
     fid = float(fid_from_moments_device(n, *totals))
     return fid, time.perf_counter() - start
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
 
 
 def memory(device: torch.device) -> Dict[str, int]:

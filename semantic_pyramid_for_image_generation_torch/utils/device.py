@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import subprocess
 
 import torch
 
@@ -16,6 +17,15 @@ def resolve_device(name: str | torch.device) -> torch.device:
             f"device {name!r} requested but CUDA is not available; pass "
             "--device cpu (or device='cpu') to run on the CPU")
     return device
+
+
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them (the first card)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
 
 
 @contextlib.contextmanager

@@ -28,7 +28,8 @@ from semantic_pyramid_for_image_generation_torch.eval import grid
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "semantic_pyramid_for_image_generation_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax",
-             "semantic_pyramid_for_image_generation_tpu"}
+             "semantic_pyramid_for_image_generation_tpu",
+             "bench", "__graft_entry__"}  # the repository's root JAX lanes
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -73,6 +74,16 @@ def test_scan_covers_the_package():
                      "parallel/mesh.py", "scripts/artifact_selftest.py",
                      "scripts/fid_rehearsal.py"):
         assert expected in names
+
+
+@pytest.mark.parametrize("module", ["scripts/jpeg_tree.py",
+                                    "scripts/long_run.py",
+                                    "scripts/loader_scaling_bench.py"])
+def test_scan_covers_the_training_scripts(module):
+    assert PORT / module in SOURCES
+    tree = ast.parse((PORT / module).read_text())
+    assert {name.split(".")[0] for _, name in _imports(tree)}.isdisjoint(
+        FORBIDDEN)
 
 
 @pytest.mark.parametrize("cfg", [JaxConfig(), JaxConfig().tiny(),
