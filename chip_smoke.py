@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
 the fused G/D train step, the Trainer, the VGG-16 fine-tune, data-parallel
 training, the train step's perf modes, sharded training state, the
-serving programs and the evaluation and training entry points.
+serving programs, the evaluation and training entry points and the root
+entry points (the throughput lanes, the driver's entry and dry run).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -207,15 +208,35 @@ Phases; any failure raises and exits non-zero, before the result lines:
     labels equal. (c) The loader scaling bench's run() at workers 1 and 8
     on 128 JPEGs: its rows and summary (`mask_route`, the card's bf16
     batch-64 step rate), launches exactly 7 train steps'. All in a fresh
-    process (spawned), joined within TR_TIMEOUT_S. The phase's seconds and
-    the smoke's.
-16. The `kernels` JSON line (launches from the train path; the serving,
+    process (spawned), joined within TR_TIMEOUT_S. The phase's seconds.
+16. The root entry points (graft_entry.py, bench.py), in a fresh process
+    (spawned) joined within RE_TIMEOUT_S. (a) entry(): the full-width fp32
+    Generator's eval forward at batch 4 on its example arguments: shape,
+    finite, launches exactly one Generator forward's (1 attention, its KV
+    max pool, 11 upsamples); then, with u/v advanced 10 power iterations
+    (from an init's random u/v every pixel saturates the tanh), on those
+    and on random arguments, the same call with the three forward kernels
+    swapped for their plain versions (no launch), within
+    RE_ENTRY_TOLERANCE, under 1% of pixels saturated; fn traced by
+    torch.export, its program against fn. (b) dryrun_multichip(4): four gloo ranks sharing the card as
+    a (2, 2) (data, fsdp) mesh; its OK line, the grid side 1808, rank 0's
+    launches exactly one train step's and 4 generates'. (c) Each of the
+    bench's eight lanes at full width in bf16, RE_ARGV (batch 16, 2 steps,
+    1 warm-up): its output prefixed `  | `, its one JSON line (value finite
+    and positive), launches exactly what the lane runs (`lane_launches`:
+    train steps 5 / 22 / 30 / 14 / 11, generates 1 / 11 / 6, fine-tune
+    steps' 5 pools and 5 pool backwards, 2 attention forwards for the
+    check); --check-pallas must read PASS in fp32 and bf16. The phase's
+    seconds and the smoke's.
+17. The `kernels` JSON line (launches from the train path; the serving,
     Trainer, fine-tune, rank-0 (a), perf-mode, sharded rank-0, program,
     evaluation and training-script paths' as `serving_launches`,
     `trainer_launches`, `finetune_launches`, `parallel_rank_launches`,
     `perf_mode_launches` (with `perf_mode_launches_per_step` per mode),
     `fsdp_rank_launches`, `program_launches`, `selftest_launches`,
-    `rehearsal_launches`, `long_run_launches`, `loader_bench_launches`;
+    `rehearsal_launches`, `long_run_launches`, `loader_bench_launches`,
+    `entry_launches`, `dryrun_rank_launches`, `bench_launches` (with
+    `bench_launches_per_lane`);
     Kernels 2 and 4 at the fine-tune's sites as `finetune_batch256`), the
     card line again, and last the device line.
 
@@ -224,6 +245,7 @@ Imports torch, numpy and the port only; needs one card and no network.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -3945,6 +3967,254 @@ def drive_training_entry_points(device) -> dict:
             return json.load(f)
 
 
+# --------------------------------------------------------------- phase 16 --
+
+RE_ARGV = ["--batch_size", "16", "--steps", "2", "--warmup", "1"]  # (c)
+RE_LANES = ("", "--per-step", "--trainer", "--host-pipeline", "--serving",
+            "--serving-artifact", "--vgg-finetune", "--check-pallas")
+RE_ENTRY_TOLERANCE = 1e-4  # (a): phase 4's fp32 end-to-end tolerance
+RE_RANKS = 4  # (b): dryrun_multichip's ranks, sharing the card
+RE_TIMEOUT_S = 300  # the phase's process
+G_FORWARD_LAUNCHES = {  # per Generator forward: its attention and KV pool
+    "pooled_kv_attention": 1, "upsample_2x": 11, "max_pool_2x2": 1,
+    "max_pool_2x2_backward": 0, "upsample_2x_backward": 0}
+
+
+def scaled(launches: dict, n: int) -> dict:
+    return {k: n * v for k, v in launches.items()}
+
+
+def added(*launches: dict) -> dict:
+    return {k: sum(d[k] for d in launches) for k in launches[0]}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The three forward kernels' custom ops swapped for their plain
+    versions for the duration: a CUDA tensor then runs the plain PyTorch
+    version and counts no launch."""
+    from semantic_pyramid_for_image_generation_torch.ops.cuda import (
+        attention,
+        pool,
+        resize,
+    )
+
+    swaps = [(attention, "_pooled_kv_attention_op",
+              attention.pooled_kv_attention_plain),
+             (pool, "_max_pool_2x2_op", pool.max_pool_2x2_plain),
+             (resize, "_upsample_2x_op", resize.upsample_2x_plain)]
+    kept = [getattr(module, name) for module, name, _ in swaps]
+    try:
+        for module, name, plain in swaps:
+            setattr(module, name, plain)
+        yield
+    finally:
+        for (module, name, _), op in zip(swaps, kept):
+            setattr(module, name, op)
+
+
+def drive_entry(device) -> dict:
+    """(a) graft_entry.entry(): the full-width fp32 Generator's eval forward
+    at batch 4 on the example arguments, launches exactly one Generator
+    forward's; then, u/v advanced 10 power iterations (unsaturated output),
+    on those and on random arguments, the same call with the plain kernels
+    (no launch) within RE_ENTRY_TOLERANCE; the torch.export program of fn
+    against fn. Returns the launches."""
+    from semantic_pyramid_for_image_generation_torch import graft_entry
+    from semantic_pyramid_for_image_generation_torch.models.layers import (
+        advance_spectral_norm_,
+    )
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.utils.device import (
+        exact_float32,
+    )
+
+    fn, args = graft_entry.entry(device)
+    g = torch.Generator(device).manual_seed(SEED)
+    latent, features, masks, labels = args
+    random_args = (torch.randn(latent.shape, generator=g, device=device),
+                   tuple(torch.randn(f.shape, generator=g, device=device)
+                         for f in features),
+                   tuple((torch.rand(m.shape, generator=g, device=device)
+                          > 0.5).float() for m in masks),
+                   labels)
+    kernels.reset_launch_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    # from the random u/v of an init every pixel saturates the tanh; with
+    # u/v advanced as phase 4 does, the comparison holds something
+    with torch.no_grad():
+        advance_spectral_norm_(fn.generator, 10)
+    errors, saturated = {}, {}
+    for name, call_args in (("example", args), ("random", random_args)):
+        got = fn(*call_args)
+        kernels.reset_launch_counts()
+        with plain_kernels():
+            want = fn(*call_args)
+        if any(kernels.launch_counts().values()):
+            raise AssertionError("plain_kernels() still launched a kernel")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"entry(): non-finite output on {name}")
+        errors[name] = (got - want).abs().max().item()
+        saturated[name] = (got.abs() > 0.999).float().mean().item()
+    start = time.perf_counter()
+    program = torch.export.export(fn, random_args, strict=False).module()
+    export_s = time.perf_counter() - start
+    with exact_float32():
+        traced = program(*random_args)
+    direct = fn(*random_args)
+    program_err = (traced - direct).abs().max().item()
+    print(f"  (a) entry(): {tuple(out.shape)} {out.dtype}, finite; launches "
+          f"{counts} (expected {G_FORWARD_LAUNCHES}); u/v advanced 10 "
+          f"iterations, kernels against plain max |difference| {errors} "
+          f"(tolerance {RE_ENTRY_TOLERANCE:g}; saturated share {saturated}); "
+          f"torch.export {export_s:.1f} s, program against fn "
+          f"{program_err:.3g} (bitwise {torch.equal(traced, direct)})",
+          flush=True)
+    if tuple(out.shape) != (graft_entry.ENTRY_BATCH, 3, 256, 256) \
+            or not torch.isfinite(out).all():
+        raise AssertionError(f"entry(): output {tuple(out.shape)}")
+    if counts != G_FORWARD_LAUNCHES:
+        raise AssertionError(f"entry() launched {counts}")
+    if max(errors.values()) > RE_ENTRY_TOLERANCE \
+            or program_err > RE_ENTRY_TOLERANCE \
+            or max(saturated.values()) > 0.01:
+        raise AssertionError("entry() disagrees with its plain kernels or "
+                             "its program")
+    return counts
+
+
+def drive_dryrun(device) -> dict:
+    """(b) graft_entry.dryrun_multichip(RE_RANKS) on the card: its OK line,
+    the (2, 2) mesh, the grid side; rank 0's launches exactly one train
+    step's and 4 generates' (3 validation batches, the grid). Returns
+    them."""
+    from semantic_pyramid_for_image_generation_torch import graft_entry
+
+    result = graft_entry.dryrun_multichip(RE_RANKS, device.type)
+    want = added(TRAIN_LAUNCHES, scaled(GENERATE_LAUNCHES, 4))
+    print(f"  (b) dryrun_multichip({RE_RANKS}): {result['seconds']:.1f} s, "
+          f"mesh {result['mesh']}, grid {result['grid_side']}, FID (random "
+          f"backbone) {result['fid']:.4g}; rank 0 launches "
+          f"{result['launches']} (expected {want})", flush=True)
+    if result["mesh"] != {"data": 2, "fsdp": 2} \
+            or result["grid_side"] != 1808 or result["device"] != "cuda":
+        raise AssertionError(f"dryrun_multichip: {result}")
+    if result["launches"] != want:
+        raise AssertionError(f"a dry-run rank launched {result['launches']}")
+    return result["launches"]
+
+
+def lane_launches(lane: str, args) -> dict:
+    """A lane's launches at `args`, worked out from what it runs: train
+    steps (TRAIN_LAUNCHES), generates, fine-tune steps, attention checks."""
+    from semantic_pyramid_for_image_generation_torch import bench
+
+    none = scaled(TRAIN_LAUNCHES, 0)
+    if lane == "--trainer":
+        per_class = bench.trainer_per_class(args.batch_size, args.steps)
+        return scaled(TRAIN_LAUNCHES, 2 * (4 * per_class // args.batch_size))
+    if lane in ("--serving", "--serving-artifact"):
+        return scaled(GENERATE_LAUNCHES, 2 * args.steps)
+    if lane == "--vgg-finetune":
+        return scaled(FINETUNE_LAUNCHES, args.warmup + args.steps)
+    if lane == "--check-pallas":  # the kernel forward once per dtype
+        return dict(none, pooled_kv_attention=2)
+    if lane == "":
+        return scaled(TRAIN_LAUNCHES, 2 * args.steps)
+    return scaled(TRAIN_LAUNCHES, args.warmup + args.steps)
+
+
+def drive_bench_lanes(device) -> dict:
+    """(c) Each lane of the port's bench at full width in bf16 with
+    RE_ARGV: its output prefixed `  | `, its one JSON line (finite,
+    positive), launches exactly `lane_launches`; --check-pallas must read
+    PASS in fp32 and bf16. Returns {lane: launches}."""
+    import contextlib
+    import io
+
+    from semantic_pyramid_for_image_generation_torch import bench
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+
+    results = {}
+    for lane in RE_LANES:
+        argv = RE_ARGV + (["--device", device.type] + ([lane] if lane else []))
+        args = bench.build_parser().parse_args(argv)
+        out = io.StringIO()
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(argv)
+        counts = kernels.launch_counts()
+        seconds = time.perf_counter() - start
+        for text in out.getvalue().strip().splitlines():
+            print(f"  | {text}", flush=True)
+        lines = [json.loads(t) for t in out.getvalue().splitlines()
+                 if t.startswith("{")]
+        want = lane_launches(lane, args)
+        name = lane or "default"
+        print(f"  (c) {name}: {seconds:.1f} s, launches {counts} (expected "
+              f"{want})", flush=True)
+        if rc != 0 or len(lines) != 1 or list(lines[0]) != [
+                "metric", "value", "unit", "vs_baseline"]:
+            raise AssertionError(f"lane {name}: rc {rc}, lines {lines}")
+        value = lines[0]["value"]
+        if lane == "--check-pallas":
+            if ": PASS {" not in lines[0]["metric"] \
+                    or lines[0]["metric"].count("'pass': True") != 2:
+                raise AssertionError(f"--check-pallas: {lines[0]}")
+        elif not (np.isfinite(value) and value > 0):
+            raise AssertionError(f"lane {name}: value {value}")
+        if counts != want:
+            raise AssertionError(f"lane {name} launched {counts}, expected "
+                                 f"{want}")
+        results[name] = counts
+    return results
+
+
+def root_entry_points_child(workdir: str, device_type: str) -> None:
+    """Phase 16 in a fresh process (spawned): (a), (b) and (c); the
+    launches go to `workdir/child.json`. Past RE_TIMEOUT_S - 30 s it dumps
+    every thread's stack to stderr."""
+    import faulthandler
+    import os
+
+    faulthandler.dump_traceback_later(RE_TIMEOUT_S - 30)
+    device = torch.device(device_type)
+    counts = {"entry": drive_entry(device)}
+    torch.cuda.empty_cache()
+    counts["dryrun_rank"] = drive_dryrun(device)
+    counts["bench"] = drive_bench_lanes(device)
+    with open(os.path.join(workdir, "child.json"), "w") as f:
+        json.dump(counts, f)
+    faulthandler.cancel_dump_traceback_later()
+
+
+def drive_root_entry_points(device) -> dict:
+    """Phase 16: (a), (b) and (c) in a spawned process, joined within
+    RE_TIMEOUT_S (killed and failed past it); their launches."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as root:
+        proc = mp.get_context("spawn").Process(
+            target=root_entry_points_child, args=(root, device.type))
+        proc.start()
+        proc.join(RE_TIMEOUT_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            raise AssertionError(f"phase 16 ran past {RE_TIMEOUT_S} s")
+        if proc.exitcode != 0:
+            raise AssertionError(f"phase 16's process exited {proc.exitcode}")
+        with open(os.path.join(root, "child.json")) as f:
+            return json.load(f)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs an NVIDIA "
@@ -4096,7 +4366,21 @@ def main() -> int:
     for path, counts in training.items():
         for name, count in counts.items():
             kernels[name][f"{path}_launches"] = count
-    print(f"  phase 15 took {time.perf_counter() - start:.1f} s; the smoke "
+    print(f"  phase 15 took {time.perf_counter() - start:.1f} s", flush=True)
+
+    print("[16] root entry points: graft_entry's entry() and "
+          f"dryrun_multichip({RE_RANKS}) on the card, the bench's eight lanes "
+          "at full width", flush=True)
+    start = time.perf_counter()
+    roots = drive_root_entry_points(device)
+    for name in kernels:
+        kernels[name]["entry_launches"] = roots["entry"][name]
+        kernels[name]["dryrun_rank_launches"] = roots["dryrun_rank"][name]
+        kernels[name]["bench_launches"] = sum(
+            counts[name] for counts in roots["bench"].values())
+        kernels[name]["bench_launches_per_lane"] = {
+            lane: counts[name] for lane, counts in roots["bench"].items()}
+    print(f"  phase 16 took {time.perf_counter() - start:.1f} s; the smoke "
           f"{time.perf_counter() - smoke_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -22,7 +22,10 @@ The port went slice by slice, each held against the JAX package:
       ops `torch.ops.spig.*`, a reader that builds no model);
   11. the evaluation entry points (the artifact selftest, the FID-10k
       rehearsal), the reference-API helpers and the subpackages' public
-      names.
+      names;
+  12. the training entry points (the long run, the loader scaling bench);
+  13. the root entry points: `bench` (the throughput lanes, one JSON line
+      each) and `graft_entry` (`entry()`, `dryrun_multichip(n)`).
 The five TPU (Pallas) kernels (three forwards, two backwards) are
 hand-written CUDA C++ kernels under `csrc/`, bound through ctypes and
 registered as torch custom ops (`ops/cuda/`).
@@ -38,7 +41,11 @@ Subpackages:
     utils    -- devices, profiling, logging, the weight bridge from JAX
                 parameters and reference `.pt` files
     cli      -- train, generate, fine-tune, convert, export, serve
-    scripts  -- the artifact selftest and the FID rehearsal
+    scripts  -- the artifact selftest, the FID rehearsal, the long run and
+                the loader scaling bench
+Modules:
+    bench        -- the throughput lanes (python -m ...bench)
+    graft_entry  -- entry() and dryrun_multichip(n)
 """
 
 __version__ = "0.1.0"

@@ -1,47 +1,86 @@
-"""ctypes bindings for the native host-pipeline kernels (native/mask_pipeline.cc),
-a copy of the JAX package's data/native.py.
+"""ctypes bindings for the native host-pipeline kernels
+(native/mask_pipeline.cc), a copy of the JAX package's data/native.py.
 
-Builds the shared library with `make -C native` on first use; every entry
-point returns None when the library is missing, and the callers fall back to
-the numpy versions (data/masks.py), so the port runs with or without it.
+The port compiles its own copy of the library on first use, with the flags
+of native/Makefile, into `_build/native-<hash>/` inside the package (listed
+in `.gitignore`), keyed by a hash of the source and the flags. The build
+holds an exclusive `fcntl.flock` on a lock file there and compiles to a
+temporary name that `os.replace` moves onto the target, so a process never
+opens a half-written library and concurrent processes build it once. The
+library the JAX package builds in place under native/ is never opened.
+Every entry point returns None when the library cannot be built (no
+compiler), and the callers fall back to the numpy versions (data/masks.py),
+so the port runs with or without it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
 import subprocess
+import tempfile
 from typing import List, Optional
 
 import numpy as np
 
 from semantic_pyramid_for_image_generation_torch.config import PyramidGANConfig
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libmask_pipeline.so")
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(os.path.dirname(_PACKAGE), "native", "mask_pipeline.cc")
+FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
+LIBRARY = "libmask_pipeline.so"
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 
 
-def _build() -> bool:
-    try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True)
-        return os.path.exists(_LIB_PATH)
-    except Exception:
-        return False
+def library_path() -> str:
+    """Where the port's build of SOURCE lives (it may not exist yet)."""
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(" ".join(FLAGS).encode() + f.read())
+    return os.path.join(_PACKAGE, "_build",
+                        f"native-{digest.hexdigest()[:16]}", LIBRARY)
+
+
+def _build(path: str) -> bool:
+    """Compile SOURCE to `path` under an exclusive lock, atomically; True
+    when the library is there afterwards (built here or by another
+    process)."""
+    compiler = shutil.which(os.environ.get("CXX", "g++"))
+    out_dir = os.path.dirname(path)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if os.path.exists(path):
+            return True
+        if compiler is None:
+            return False
+        fd, tmp = tempfile.mkstemp(prefix=".tmp-", suffix=".so", dir=out_dir)
+        os.close(fd)
+        try:
+            done = subprocess.run([compiler, *FLAGS, "-o", tmp, SOURCE],
+                                  capture_output=True)
+            if done.returncode != 0:
+                return False
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return True
 
 
 def load_library() -> Optional[ctypes.CDLL]:
     global _lib, _load_failed
     if _lib is not None or _load_failed:
         return _lib
-    if not os.path.exists(_LIB_PATH) and not _build():
+    path = library_path()
+    if not os.path.exists(path) and not _build(path):
         _load_failed = True
         return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(path)
     except OSError:
         _load_failed = True
         return None

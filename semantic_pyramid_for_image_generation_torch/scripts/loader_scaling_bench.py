@@ -8,7 +8,7 @@ PyTorch port.
 On a synthetic Places365-format JPEG tree (scripts/jpeg_tree.py, 4
 classes) in a temporary directory, for each worker count:
   * `loader` - the production `Places365Loader` (threaded PIL decode, the
-    native mask kernels when native/libmask_pipeline.so builds, collate)
+    native mask kernels when the native library builds, collate)
     in the compact uint8 feed (float32 with --float_feed): best of 2
     passes after a warm-up batch, images/s;
   * `decode` - a pure ThreadPoolExecutor PIL decode of the same files,
@@ -39,7 +39,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,11 +105,14 @@ def decode_throughput(paths, workers: int, repeats: int = 2) -> float:
 
 
 def make_loader(root: str, config: PyramidGANConfig, batch: int,
-                workers: int, compact: bool) -> Places365Loader:
-    """The production loader over `root`/train.txt, as the bench times it."""
+                workers: int, compact: bool,
+                use_native_masks: Optional[bool] = None) -> Places365Loader:
+    """The production loader over `root`/train.txt, as the bench times it
+    (`use_native_masks` None: the native masks when the library builds)."""
     return Places365Loader(Places365(root, "train.txt", config),
                            batch_size=batch, num_workers=workers, prefetch=2,
-                           compact_feed=compact)
+                           compact_feed=compact,
+                           use_native_masks=use_native_masks)
 
 
 def loader_throughput(root: str, config: PyramidGANConfig, batch: int,

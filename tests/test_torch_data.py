@@ -14,6 +14,10 @@ antialias=False)` in fp32, at 256->299 and at the 320->299 downscale: 1e-5
 absolute on inputs in [-1, 1] (two-tap interpolation, fp32 rounding).
 """
 
+import fcntl
+import os
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,10 +66,34 @@ def dataset_root(tmp_path_factory):
                     Image.fromarray(arr).save(d / f"{i}.png")
                 lines.append(f"{split}/{cls}/{i}.png")
         (root / f"{split}.txt").write_text("\n".join(lines) + "\n")
-    # the JAX package's binding builds the native library first, so the
-    # port's finds it complete
-    assert jax_native.native_available()
+    assert native.native_available()
+    assert jax_native_loaded()
     return str(root)
+
+
+def jax_native_loaded(quiet_s: float = 1.0, limit_s: float = 60.0) -> bool:
+    """Whether the JAX package's native library is loaded in this process,
+    for the native mask cases (the port's own build is locked and atomic).
+    The JAX package builds the library in place with `make`, unlocked, so
+    this process may have opened it while another test process's linker
+    was still writing it ("file too short") and kept `_load_failed`. Then
+    the load is retried once, after the file has not changed for
+    `quiet_s`. Port test processes take the port's build lock around the
+    load, so they do not race each other's JAX builds."""
+    lock_path = os.path.join(os.path.dirname(native.library_path()), "lock")
+    with open(lock_path, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if jax_native.native_available():
+            return True
+        path = jax_native._LIB_PATH
+        deadline = time.monotonic() + limit_s
+        while time.monotonic() < deadline and not (
+                os.path.exists(path)
+                and time.time() - os.path.getmtime(path) >= quiet_s):
+            time.sleep(0.1)
+        jax_native._load_failed = False
+        jax_native.load_library()
+        return jax_native.native_available()
 
 
 def _assert_batches_equal(got, want):

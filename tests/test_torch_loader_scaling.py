@@ -15,7 +15,8 @@ Held:
     `native_available()`;
   * the loader the bench times: its first batch equals the JAX package's
     `Places365Loader`'s over the same tree and seed, bitwise (images,
-    labels, masks), in the compact and the float feed.
+    labels, masks), in the compact and the float feed, with the numpy and
+    the native mask route given to both loaders.
 `--device cuda` raises on a host without a card before it builds anything.
 """
 
@@ -32,6 +33,7 @@ import torch
 from semantic_pyramid_for_image_generation_tpu.config import (
     PyramidGANConfig as JaxConfig,
 )
+from semantic_pyramid_for_image_generation_tpu.data import native as jax_native
 from semantic_pyramid_for_image_generation_tpu.data.places365 import (
     Places365 as JaxPlaces365,
     Places365Loader as JaxPlaces365Loader,
@@ -44,6 +46,7 @@ from semantic_pyramid_for_image_generation_torch.scripts import (
 from semantic_pyramid_for_image_generation_torch.scripts.jpeg_tree import (
     make_jpeg_tree,
 )
+from test_torch_data import jax_native_loaded
 
 REPO = Path(__file__).resolve().parents[1]
 ARGV = ["--workers", "1", "--images", "8", "--batch", "4"]
@@ -133,14 +136,33 @@ def test_device_step_rate_at_tiny_on_the_cpu():
     assert np.isfinite(rate) and rate > 0
 
 
+def _native_route_ready() -> None:
+    """Both packages' native libraries loaded in this process: the port's
+    (its locked build), then the JAX package's, retried once if this
+    process opened it half-written (test_torch_data.py::jax_native_loaded)."""
+    assert native.native_available(), (
+        "native route: the port's library did not build")
+    assert jax_native_loaded(), (
+        "native route: the JAX package's library failed to load, twice")
+
+
 @pytest.mark.parametrize("compact", [True, False], ids=["compact", "float"])
-def test_first_batch_matches_the_jax_loader(tmp_path, compact):
+@pytest.mark.parametrize("route", ["numpy", "native"])
+def test_first_batch_matches_the_jax_loader(tmp_path, route, compact):
+    """Each loader is told its mask route, so the numpy cases need no
+    build and the native cases cannot fall back to numpy on one side."""
+    use_native = route == "native"
+    if use_native:
+        _native_route_ready()
     root = make_jpeg_tree(str(tmp_path), per_class=2, classes=4)
-    loader = bench.make_loader(root, PyramidGANConfig(), 4, 2, compact)
+    loader = bench.make_loader(root, PyramidGANConfig(), 4, 2, compact,
+                               use_native_masks=use_native)
     want = next(iter(JaxPlaces365Loader(
         JaxPlaces365(root, "train.txt", JaxConfig()), batch_size=4,
-        num_workers=2, prefetch=2, compact_feed=compact)))
+        num_workers=2, prefetch=2, compact_feed=compact,
+        use_native_masks=use_native)))
     got = next(iter(loader))
+    assert loader.use_native_masks is use_native
     assert got["images"].dtype == (np.uint8 if compact else np.float32)
     np.testing.assert_array_equal(got["images"], want["images"])
     np.testing.assert_array_equal(got["labels"], want["labels"])

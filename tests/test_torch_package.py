@@ -86,6 +86,20 @@ def test_scan_covers_the_training_scripts(module):
         FORBIDDEN)
 
 
+@pytest.mark.parametrize("module", ["bench.py", "graft_entry.py"])
+def test_scan_covers_the_root_entry_points(module):
+    """The counterparts of the root bench script and graft entry: scanned,
+    and neither imports nor names (in a string) the root JAX files."""
+    assert PORT / module in SOURCES
+    tree = ast.parse((PORT / module).read_text())
+    assert {name.split(".")[0] for _, name in _imports(tree)}.isdisjoint(
+        FORBIDDEN)
+    strings = [n.value for n in ast.walk(tree)
+               if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+    assert not any(v.split(".")[0] in ("bench", "__graft_entry__")
+                   for v in strings)
+
+
 @pytest.mark.parametrize("cfg", [JaxConfig(), JaxConfig().tiny(),
                                  JaxConfig(channels_factor=2, num_classes=10)])
 def test_config_copy_matches_jax_package(cfg):
