@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
 the fused G/D train step, the Trainer, the VGG-16 fine-tune, data-parallel
 training, the train step's perf modes, sharded training state, the
-serving programs, the evaluation and training entry points and the root
-entry points (the throughput lanes, the driver's entry and dry run).
+serving programs, the evaluation and training entry points, the root
+entry points (the throughput lanes, graft_entry's entry() and dry run) and
+the profiling entry points (the train step's per-op roofline, three
+microbenchmarks).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -227,8 +229,28 @@ Phases; any failure raises and exits non-zero, before the result lines:
     train steps 5 / 22 / 30 / 14 / 11, generates 1 / 11 / 6, fine-tune
     steps' 5 pools and 5 pool backwards, 2 attention forwards for the
     check); --check-pallas must read PASS in fp32 and bf16. The phase's
-    seconds and the smoke's.
-17. The `kernels` JSON line (launches from the train path; the serving,
+    seconds.
+17. The profiling entry points (scripts/profile_step.py and the three
+    microbenchmarks), in a fresh process (spawned) joined within
+    PF_TIMEOUT_S. (a) profile_step's capture and
+    analyze at full width, bf16, PS_ARGV (batch 128, 2 profiled steps, 1
+    warm-up): the device us per step, wall and unprofiled us per step,
+    busy share, category shares, FLOPs and MFUs, the top ops and data-
+    formatting kernels; held: launches per step from the trace exactly
+    the train step's (5 / 30 / 22 / 14 / 11), the counters exactly that
+    times every step the capture ran, the category shares summing to 100
+    within PS_SHARE_SLACK, 0 < step_mfu_pct <= 100 (profiled and not).
+    (b) finalblock_bench, inputconv_bwd_bench and s2d_stem_bench with
+    MB_ARGV (batch 128, 3 iterations, bf16): their output prefixed `  | `;
+    held: each float32 check within the script's tolerance (the tolerance
+    its test states), every time finite and positive, and the finalblock
+    chains' launches per iteration one Kernel 3 and one Kernel 5. (c)
+    Kernels 3 and 5 at the final block's shape, (B, 64, 128, 128) ->
+    (B, 64, 256, 256), against their plain versions in bf16 and fp32: timed
+    at batch 128 as phase 8 (b) times its batch-256 sites (kernel, plain,
+    library and bound ms), held at the finalblock bench's check batch. The
+    phase's seconds and the smoke's.
+18. The `kernels` JSON line (launches from the train path; the serving,
     Trainer, fine-tune, rank-0 (a), perf-mode, sharded rank-0, program,
     evaluation and training-script paths' as `serving_launches`,
     `trainer_launches`, `finetune_launches`, `parallel_rank_launches`,
@@ -236,8 +258,11 @@ Phases; any failure raises and exits non-zero, before the result lines:
     `fsdp_rank_launches`, `program_launches`, `selftest_launches`,
     `rehearsal_launches`, `long_run_launches`, `loader_bench_launches`,
     `entry_launches`, `dryrun_rank_launches`, `bench_launches` (with
-    `bench_launches_per_lane`);
-    Kernels 2 and 4 at the fine-tune's sites as `finetune_batch256`), the
+    `bench_launches_per_lane`), phase 17's as `profile_step_launches`
+    (with `profile_step_launches_per_step` from the trace) and, for
+    Kernels 3 and 5, `finalblock_launches_per_iter` and `finalblock`
+    (the final block's shape per dtype); Kernels 2 and 4 at the fine-tune's
+    sites as `finetune_batch256`), the
     card line again, and last the device line.
 
 Imports torch, numpy and the port only; needs one card and no network.
@@ -472,7 +497,7 @@ def train_site_batches():
     bf16, (c) and (d) at 8 in fp32, (e)'s CLI in bf16 at its batch; a rank
     of phase 12 (a) at 32 in bf16 and of (b) at 8 in fp32, of (c)'s CLI at
     its batch over the two ranks in bf16; phase 15's long run and loader
-    bench at 64 in bf16."""
+    bench at 64 in bf16; phase 17's profile_step at 128 in bf16."""
     return list(dict.fromkeys([
         (BATCH, torch.bfloat16), (BATCH, torch.float32),
         (NCCL_BATCH, torch.bfloat16),
@@ -482,7 +507,7 @@ def train_site_batches():
         (PM_BATCH, torch.bfloat16), (PM_FP32_BATCH, torch.float32),
         (PM_CLI_BATCH, torch.bfloat16),
         (FS_CLI_BATCH // DP_WORLD, torch.bfloat16),
-        (LR_BATCH, torch.bfloat16)]))
+        (LR_BATCH, torch.bfloat16), (PS_BATCH, torch.bfloat16)]))
 
 
 def fused_d_site_batches():
@@ -516,7 +541,10 @@ def memory_ceilings(device) -> None:
               f"({100 * rate / HBM_BYTES_PER_S:.0f}% of 3.35 TB/s)", flush=True)
 
 
-def check_kernels(device) -> dict:
+def kernel_specs(device) -> dict:
+    """Per kernel: its source, the TPU kernel it replaces, its main path's
+    sites, input maker, wrapper, plain version, library yardstick, FLOPs,
+    output bytes and tolerance against the plain version."""
     from semantic_pyramid_for_image_generation_torch.ops.cuda import (
         attention,
         pool,
@@ -623,6 +651,66 @@ def check_kernels(device) -> dict:
         ),
     }
 
+    return specs
+
+
+def measure_site(name: str, spec: dict, shape, site_dtype,
+                 large: bool = False) -> dict:
+    """One site: the kernel against its plain version (raises beyond the
+    tolerance), then the kernel's, the plain version's and the library
+    yardstick's ms and the bound's (bytes and FLOPs) in ms. A `large` site
+    is timed as phase 8 (b) times its batch-256 sites: the kernel and the
+    library over 7 windows of 5 calls, the plain version over 3 calls."""
+    reps = {"kernel": (7, 5), "plain": (3, 1)} if large else {
+        "kernel": (21, 10), "plain": (21, 10)}
+    args = spec["make"](shape, site_dtype)
+    got = spec["kernel"](*args)
+    want = spec["plain"](*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = spec["tol"](site_dtype, want.float())
+    ok = (torch.equal(got, want) if tol == 0.0 else err <= tol)
+    site = (f"  {name} {str(site_dtype)[6:]} {tuple(shape)}: "
+            f"max_abs_err {err:.3g} (tol {tol:.3g})")
+    if not ok:
+        print(site + " FAIL", flush=True)
+        raise AssertionError(f"{name} disagrees with its plain "
+                             f"version at {shape} in {site_dtype}")
+    ms = time_ms(lambda: spec["kernel"](*args), *reps["kernel"])
+    t_bytes = (nbytes(*args) + spec["out_bytes"](*args)) \
+        / HBM_BYTES_PER_S * 1e3
+    t_flops = spec["flops"](*args) / PEAK_FLOPS[site_dtype] * 1e3
+    bound = max(t_bytes, t_flops)
+    print(f"{site} ok, {ms * 1e3:.1f} us, {100 * bound / ms:.0f}% "
+          f"of its bound", flush=True)
+    return {"max_abs_err": err, "ms": ms,
+            "plain_ms": time_ms(lambda: spec["plain"](*args),
+                                *reps["plain"]),
+            "library_ms": time_ms(spec["library"](*args), *reps["kernel"]),
+            "bound_ms": bound, "bytes_ms": t_bytes, "flops_ms": t_flops}
+
+
+def hold_sites(specs: dict, name: str, sites, what: str) -> None:
+    """Each site once against the plain version, not timed."""
+    spec, worst = specs[name], 0.0
+    sites = list(dict.fromkeys(sites))
+    for shape, site_dtype in sites:
+        args = spec["make"](shape, site_dtype)
+        got = spec["kernel"](*args)
+        want = spec["plain"](*args)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = spec["tol"](site_dtype, want.float())
+        if not (torch.equal(got, want) if tol == 0.0 else err <= tol):
+            raise AssertionError(f"{name} disagrees with its plain "
+                                 f"version at {shape} in {site_dtype}")
+        worst = max(worst, err)
+        del args, got, want
+    print(f"  {name} {what}, {len(sites)} sites: max_abs_err "
+          f"{worst:.3g} ok", flush=True)
+
+
+def check_kernels(device) -> dict:
+    specs = kernel_specs(device)
     results = {}
     for name, spec in specs.items():
         entry = {"name": name, "route": "cuda", "source": spec["source"],
@@ -633,33 +721,13 @@ def check_kernels(device) -> dict:
             bytes_s = flops_s = 0.0
             sites = spec["sites"](dtype)
             for shape, site_dtype in sites:
-                args = spec["make"](shape, site_dtype)
-                got = spec["kernel"](*args)
-                want = spec["plain"](*args)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                tol = spec["tol"](site_dtype, want.float())
-                ok = (torch.equal(got, want) if tol == 0.0 else err <= tol)
-                site = (f"  {name} {str(site_dtype)[6:]} {tuple(shape)}: "
-                        f"max_abs_err {err:.3g} (tol {tol:.3g})")
-                if not ok:
-                    print(site + " FAIL", flush=True)
-                    raise AssertionError(f"{name} disagrees with its plain "
-                                         f"version at {shape} in {site_dtype}")
-                ms = time_ms(lambda: spec["kernel"](*args))
-                t_bytes = (nbytes(*args) + spec["out_bytes"](*args)) \
-                    / HBM_BYTES_PER_S * 1e3
-                t_flops = spec["flops"](*args) / PEAK_FLOPS[site_dtype] * 1e3
-                bound = max(t_bytes, t_flops)
-                print(f"{site} ok, {ms * 1e3:.1f} us, {100 * bound / ms:.0f}% "
-                      f"of its bound", flush=True)
-                row["max_abs_err"] = max(row["max_abs_err"], err)
-                row["ms"] += ms
-                row["plain_ms"] += time_ms(lambda: spec["plain"](*args))
-                row["library_ms"] += time_ms(spec["library"](*args))
-                row["bound_ms"] += bound
-                bytes_s += t_bytes
-                flops_s += t_flops
+                site = measure_site(name, spec, shape, site_dtype)
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         site["max_abs_err"])
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                    row[key] += site[key]
+                bytes_s += site["bytes_ms"]
+                flops_s += site["flops_ms"]
             row["bound_by"] = "bytes" if bytes_s >= flops_s else "operations"
             row["sites"] = len(sites)
             print(f"  {name} {str(dtype)[6:]} over {row['sites']} sites: "
@@ -671,47 +739,30 @@ def check_kernels(device) -> dict:
             else:
                 entry["float32"] = row
         results[name] = entry
-    def hold(name: str, sites, what: str) -> None:
-        """Each site once against the plain version, not timed."""
-        spec, worst = specs[name], 0.0
-        sites = list(dict.fromkeys(sites))
-        for shape, site_dtype in sites:
-            args = spec["make"](shape, site_dtype)
-            got = spec["kernel"](*args)
-            want = spec["plain"](*args)
-            err = (got.float() - want.float()).abs().max().item()
-            tol = spec["tol"](site_dtype, want.float())
-            if not (torch.equal(got, want) if tol == 0.0 else err <= tol):
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version at {shape} in {site_dtype}")
-            worst = max(worst, err)
-            del args, got, want
-        print(f"  {name} {what}, {len(sites)} sites: max_abs_err "
-              f"{worst:.3g} ok", flush=True)
-
     # the Trainers' generates: validation batches, the grid at 49
     for name in ("pooled_kv_attention", "max_pool_2x2", "upsample_2x"):
         for batch in generate_batches():
             for dtype in DTYPES:
-                hold(name, specs[name]["sites"](dtype, batch),
-                     f"{str(dtype)[6:]} generate batch {batch}")
+                hold_sites(specs, name, specs[name]["sites"](dtype, batch),
+                           f"{str(dtype)[6:]} generate batch {batch}")
     # phase 14's selftest: the VGG-16 eval batches of its accuracies, in the
     # classifier's default float32
-    hold("max_pool_2x2", [(shape, torch.float32)
-                          for shape in vgg_pools(EV_BATCH)],
-         f"float32 selftest VGG eval batch {EV_BATCH}")
+    hold_sites(specs, "max_pool_2x2",
+               [(shape, torch.float32) for shape in vgg_pools(EV_BATCH)],
+               f"float32 selftest VGG eval batch {EV_BATCH}")
     # every train step the smoke drives, per rank (the train step's own
     # sites: the loss pools in fp32, each backward)
     for batch, dtype in train_site_batches():
         for name, spec in specs.items():
-            hold(name, spec["train_sites"](dtype, batch),
-                 f"{str(dtype)[6:]} train step batch {batch}")
+            hold_sites(specs, name, spec["train_sites"](dtype, batch),
+                       f"{str(dtype)[6:]} train step batch {batch}")
     # phase 11's fused D pass: D's attention and KV pool over real ++ fake
     for rows, dtype in fused_d_site_batches():
         what = f"{str(dtype)[6:]} fused-D pass of {rows} rows"
-        hold("pooled_kv_attention", attention_sites(dtype, rows), what)
+        hold_sites(specs, "pooled_kv_attention",
+                   attention_sites(dtype, rows), what)
         for name in ("max_pool_2x2", "max_pool_2x2_backward"):
-            hold(name, [(kv_pool(rows), dtype)], what)
+            hold_sites(specs, name, [(kv_pool(rows), dtype)], what)
     torch.cuda.empty_cache()
     time_attention_backward(device, results["pooled_kv_attention"])
     return results
@@ -1823,28 +1874,14 @@ def check_artifact_round_trip(device, card: str) -> None:
         raise AssertionError("the artifact's output differs")
 
 
-KERNEL_NAMES = ("attention_mma_kernel", "attention_fp32_kernel",
-                "max_pool_2x2_kernel", "upsample_2x_kernel",
-                "max_pool_2x2_backward_kernel", "upsample_2x_backward_kernel")
-# device op kinds by name, first match wins
-OP_KINDS = (
-    ("port kernels", KERNEL_NAMES),
-    ("optimizer", ("multi_tensor_apply", "foreach", "fused_adam")),
-    ("convolution", ("xmma", "conv", "cudnn", "fft", "FFT", "implicit_gemm",
-                     "wgrad", "dgrad", "nhwcToNchw", "nchwToNhwc",
-                     "pointwise_mult_and_sum_complex")),
-    ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "Kernel2")),
-    ("copies", ("Memcpy", "Memset", "copy_kernel", "direct_copy")),
-    ("reductions", ("reduce_kernel",)),
-    ("elementwise", ("elementwise", "vectorized", "index", "scatter",
-                     "gather", "where")),
-)
-
-
 def profile_summary(label: str, run) -> None:
     """torch.profiler over one call of `run` (warm): wall time, device busy
     time and share, the port kernels' share of busy, the top 8 device ops."""
     from torch.profiler import ProfilerActivity, profile
+
+    from semantic_pyramid_for_image_generation_torch.scripts import (
+        profile_step,
+    )
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1862,15 +1899,14 @@ def profile_summary(label: str, run) -> None:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
     ours = sum(t for name, t in by_name.items()
-               if any(k in name for k in KERNEL_NAMES))
+               if any(k in name for k in profile_step.KERNEL_NAMES))
     print(f"  profile {label}: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} "
           f"device ops, port kernels {ours:.3f} ms "
           f"({100 * ours / max(busy_ms, 1e-9):.1f}% of busy)")
     split: dict = {}
     for name, t in by_name.items():
-        kind = next((k for k, keys in OP_KINDS if any(w in name for w in keys)),
-                    "other")
+        kind = profile_step.category(name)
         split[kind] = split.get(kind, 0.0) + t
     print("    by kind: " + ", ".join(
         f"{k} {t:.3f} ms" for k, t in sorted(split.items(), key=lambda x: -x[1])))
@@ -4215,6 +4251,203 @@ def drive_root_entry_points(device) -> dict:
             return json.load(f)
 
 
+# --------------------------------------------------------------- phase 17 --
+
+PS_BATCH = 128  # (a): the JAX script's operating point
+PS_ARGV = ["--batch", str(PS_BATCH), "--steps", "2", "--warmup", "1"]
+PS_SHARE_SLACK = 0.5  # (a): the category shares, each rounded to 0.01
+MB_ARGV = ["--batch", "128", "--iters", "3"]  # (b)
+PF_TIMEOUT_S = 300  # the phase's process (~40 s on the H100)
+
+
+def drive_profile_step(device) -> tuple:
+    """(a) profile_step's capture and analyze in a temp dir; returns the
+    report and the counters' launches over the capture."""
+    import tempfile
+
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+    from semantic_pyramid_for_image_generation_torch.scripts import (
+        profile_step as ps,
+    )
+
+    args = ps.build_parser().parse_args(PS_ARGV + ["--device", device.type])
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as log_dir:
+        ps.capture(args, log_dir)
+        captured = time.perf_counter()
+        report = ps.analyze(log_dir, args.steps)
+    counts = kernels.launch_counts()
+    steps = args.warmup + 1 + ps.UNPROFILED_WINDOWS * args.steps + args.steps
+    shares = report["category_shares_pct"]
+    print(f"  (a) profile_step, bf16 batch {PS_BATCH}: capture "
+          f"{captured - start:.1f} s, analyze "
+          f"{time.perf_counter() - captured:.1f} s; device "
+          f"{report['total_device_us_per_step']:.1f} us/step, wall "
+          f"{report['wall_us_per_step']:.1f} us/step profiled and "
+          f"{report['unprofiled_us_per_step']:.1f} unprofiled, busy "
+          f"{report['device_busy_pct']}%; step_flops {report['step_flops']:,},"
+          f" step_mfu_pct {report['step_mfu_pct']} (unprofiled "
+          f"{report['step_mfu_pct_unprofiled']})", flush=True)
+    print(f"    category shares (sum {sum(shares.values()):.2f}): {shares}",
+          flush=True)
+    for row in report["top_ops"]:
+        print(f"    {row['self_us_per_step']:10.1f} us "
+              f"{row['share_pct']:5.2f}% {row['category']:12s} "
+              f"{row['bound_by'] or '-':10s} roofline "
+              f"{row['roofline_pct']}% {row['gflops_per_s']} GFLOP/s "
+              f"{row['mem_bw_gib_s']} GiB/s n={row['n']} {row['op']} "
+              f"{json.dumps(row['shapes'])[:90]}", flush=True)
+    for row in report["data_formatting_ops"][:6]:
+        print(f"    formatting {row['self_us_per_step']:9.1f} us "
+              f"{row['share_pct']:5.2f}% {row['op'][:60]} in {row['within']} "
+              f"{json.dumps(row['shapes'])[:40]}", flush=True)
+    for row in report["top_launchers"][:6]:
+        print(f"    launched by {row['launched_by']} in {row['within']}: "
+              f"{row['us_per_step']:.1f} us ({row['share_pct']}%)",
+              flush=True)
+    want = scaled(TRAIN_LAUNCHES, steps)
+    print(f"    launches per step (trace) {report['launches_per_step']} "
+          f"(expected {TRAIN_LAUNCHES}); counters over {steps} steps "
+          f"{counts} (expected {want})", flush=True)
+    if report["launches_per_step"] != TRAIN_LAUNCHES or counts != want:
+        raise AssertionError("profile_step's launches differ")
+    if abs(sum(shares.values()) - 100) > PS_SHARE_SLACK:
+        raise AssertionError(f"the category shares sum to "
+                             f"{sum(shares.values())}")
+    for key in ("step_mfu_pct", "step_mfu_pct_unprofiled"):
+        if not (report[key] is not None and 0 < report[key] <= 100):
+            raise AssertionError(f"{key} {report[key]}")
+    return report, counts
+
+
+def drive_microbenchmarks(device) -> dict:
+    """(b) The three microbenchmarks' main() with MB_ARGV; returns their
+    JSON lines by name."""
+    import contextlib
+    import io
+
+    from semantic_pyramid_for_image_generation_torch.scripts import (
+        finalblock_bench,
+        inputconv_bwd_bench,
+        s2d_stem_bench,
+    )
+
+    lines = {}
+    for module in (finalblock_bench, inputconv_bwd_bench, s2d_stem_bench):
+        name = module.__name__.rsplit(".", 1)[-1]
+        out = io.StringIO()
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = module.main(MB_ARGV + ["--device", device.type])
+        for text in out.getvalue().strip().splitlines():
+            print(f"  | {text}", flush=True)
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        print(f"  (b) {name}: {time.perf_counter() - start:.1f} s", flush=True)
+        times = list(line["ms_per_iter"].values())
+        if rc != 0 or not all(np.isfinite(t) and t > 0 for t in times):
+            raise AssertionError(f"{name}: rc {rc}, {line['ms_per_iter']}")
+        lines[name] = line
+    checks = lines["finalblock_bench"]["float32_checks"]
+    if max(checks["stats_mean_abs_err"], checks["stats_meansq_rel_err"]) \
+            > finalblock_bench.STATS_TOLERANCE or max(
+                v for k, v in checks.items() if k.startswith("folded")) \
+            > finalblock_bench.CHAIN_TOLERANCE:
+        raise AssertionError(f"finalblock's float32 checks: {checks}")
+    one_each = dict(scaled(TRAIN_LAUNCHES, 0), upsample_2x=1,
+                    upsample_2x_backward=1)
+    for chain, counts in lines["finalblock_bench"][
+            "launches_per_iter"].items():
+        if counts != one_each:
+            raise AssertionError(f"finalblock {chain} launched {counts}")
+    tolerance = inputconv_bwd_bench.TOLERANCE
+    for variant, errs in lines["inputconv_bwd_bench"][
+            "float32_rel_err_vs_no_pad"].items():
+        if any(errs[k] > tolerance[k] for k in tolerance):
+            raise AssertionError(f"inputconv {variant}: {errs}")
+    for variant, err in lines["s2d_stem_bench"][
+            "float32_rel_err_vs_direct"].items():
+        if err > s2d_stem_bench.TOLERANCE:
+            raise AssertionError(f"s2d {variant}: {err}")
+    return lines
+
+
+def check_final_block_sites(device) -> dict:
+    """(c) Kernels 3 and 5 at the final block's shape against their plain
+    versions: timed at PS_BATCH in bf16 and fp32, held at the finalblock
+    bench's check batch. Returns {kernel: {dtype: row}}."""
+    from semantic_pyramid_for_image_generation_torch.scripts import (
+        finalblock_bench,
+    )
+
+    specs = kernel_specs(device)
+    c, hw = finalblock_bench.CHANNELS, finalblock_bench.SIZE
+    rows = {}
+    for name, scale in (("upsample_2x", 1), ("upsample_2x_backward", 2)):
+        rows[name] = {}
+        for dtype in DTYPES:
+            site = measure_site(name, specs[name],
+                                (PS_BATCH, c, scale * hw, scale * hw), dtype,
+                                large=True)
+            site["bound_by"] = ("bytes" if site.pop("bytes_ms")
+                                >= site.pop("flops_ms") else "operations")
+            rows[name][str(dtype)[6:]] = site
+            hold_sites(specs, name, [((finalblock_bench.CHECK_BATCH, c,
+                                       scale * hw, scale * hw), dtype)],
+                       f"{str(dtype)[6:]} final block at the check batch")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def profiling_child(workdir: str, device_type: str) -> None:
+    """Phase 17 in a fresh process (spawned): (a), (b) and (c); the
+    launches and the final block's readings go to `workdir/child.json`.
+    Past PF_TIMEOUT_S - 30 s it dumps every thread's stack to stderr."""
+    import faulthandler
+    import os
+
+    faulthandler.dump_traceback_later(PF_TIMEOUT_S - 30)
+    device = torch.device(device_type)
+    report, counts = drive_profile_step(device)
+    lines = drive_microbenchmarks(device)
+    sites = check_final_block_sites(device)
+    with open(os.path.join(workdir, "child.json"), "w") as f:
+        json.dump({"counts": counts,
+                   "launches_per_step": report["launches_per_step"],
+                   "finalblock_launches_per_iter": lines[
+                       "finalblock_bench"]["launches_per_iter"],
+                   "sites": sites}, f)
+    faulthandler.cancel_dump_traceback_later()
+
+
+def drive_profiling_entry_points(device) -> dict:
+    """Phase 17: (a), (b) and (c) in a spawned process, joined within
+    PF_TIMEOUT_S (killed and failed past it). In this process, after the
+    profiles of phase 9, a trace of the batch-128 step lost device events
+    (57 of 60 max pool launches in one run); a fresh process records them
+    all."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as root:
+        proc = mp.get_context("spawn").Process(
+            target=profiling_child, args=(root, device.type))
+        proc.start()
+        proc.join(PF_TIMEOUT_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            raise AssertionError(f"phase 17 ran past {PF_TIMEOUT_S} s")
+        if proc.exitcode != 0:
+            raise AssertionError(f"phase 17's process exited {proc.exitcode}")
+        with open(os.path.join(root, "child.json")) as f:
+            return json.load(f)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs an NVIDIA "
@@ -4380,7 +4613,23 @@ def main() -> int:
             counts[name] for counts in roots["bench"].values())
         kernels[name]["bench_launches_per_lane"] = {
             lane: counts[name] for lane, counts in roots["bench"].items()}
-    print(f"  phase 16 took {time.perf_counter() - start:.1f} s; the smoke "
+    print(f"  phase 16 took {time.perf_counter() - start:.1f} s", flush=True)
+
+    print("[17] profiling entry points: profile_step at full width, bf16 "
+          f"batch {PS_BATCH}; the three microbenchmarks; Kernels 3 and 5 at "
+          "the final block's shape", flush=True)
+    start = time.perf_counter()
+    profiling = drive_profiling_entry_points(device)
+    for name in kernels:
+        kernels[name]["profile_step_launches"] = profiling["counts"][name]
+        kernels[name]["profile_step_launches_per_step"] = \
+            profiling["launches_per_step"][name]
+    for name, rows in profiling["sites"].items():
+        kernels[name]["finalblock"] = rows
+        kernels[name]["finalblock_launches_per_iter"] = {
+            chain: counts[name] for chain, counts in profiling[
+                "finalblock_launches_per_iter"].items()}
+    print(f"  phase 17 took {time.perf_counter() - start:.1f} s; the smoke "
           f"{time.perf_counter() - smoke_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -4,6 +4,9 @@
 and, where there is one, the card, and writes it as a chrome trace
 (`<log_dir>/trace.json`, viewable in Perfetto or chrome://tracing).
 `StepTimer` times repeated blocks on the host clock, the first few left out.
+`iteration_ms` times a call on the card with CUDA events (the host clock on
+the CPU), and `launches_of` counts the port kernels one call launches: the
+scripts' microbenchmarks use both.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Iterator, List
+from typing import Callable, Dict, Iterator, List
 
 import torch
 
@@ -56,3 +59,39 @@ class StepTimer:
     @property
     def mean(self) -> float:
         return sum(self.times) / max(len(self.times), 1)
+
+
+def iteration_ms(fn: Callable[[], object], device: torch.device, iters: int,
+                 warmup: int = 2) -> float:
+    """ms per call of `fn` over `iters` calls after `warmup` untimed ones.
+    On a CUDA device: CUDA events around the calls, recorded after a
+    synchronize, so the time is the card's and not the host's enqueue. On
+    the CPU: the host clock (not a device time)."""
+    for _ in range(warmup):
+        fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def launches_of(fn: Callable[[], object]) -> Dict[str, int]:
+    """The port kernels' launches during one call of `fn`: the counters'
+    change (ops/cuda/__init__.py), which are not reset. 0 each on the CPU,
+    where the plain versions run."""
+    from semantic_pyramid_for_image_generation_torch.ops import cuda as kernels
+
+    before = kernels.launch_counts()
+    fn()
+    after = kernels.launch_counts()
+    return {name: after[name] - before[name] for name in after}

@@ -86,6 +86,17 @@ def test_scan_covers_the_training_scripts(module):
         FORBIDDEN)
 
 
+@pytest.mark.parametrize("module", ["scripts/profile_step.py",
+                                    "scripts/finalblock_bench.py",
+                                    "scripts/inputconv_bwd_bench.py",
+                                    "scripts/s2d_stem_bench.py"])
+def test_scan_covers_the_profiling_scripts(module):
+    assert PORT / module in SOURCES
+    tree = ast.parse((PORT / module).read_text())
+    assert {name.split(".")[0] for _, name in _imports(tree)}.isdisjoint(
+        FORBIDDEN)
+
+
 @pytest.mark.parametrize("module", ["bench.py", "graft_entry.py"])
 def test_scan_covers_the_root_entry_points(module):
     """The counterparts of the root bench script and graft entry: scanned,
