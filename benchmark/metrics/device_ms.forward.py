@@ -1,0 +1,11 @@
+"""Device time per step of the operations launched under the program's
+forward spans (`sp:step.*.forward`, `sp:step.forward`): the networks'
+forwards and the losses, in the sub-window traced with shapes
+(benchmark/spans.py)."""
+
+from benchmark import spans
+
+
+def read(run):
+    return spans.ms_per_step(
+        run, "device_us", lambda name: name.endswith(".forward"))

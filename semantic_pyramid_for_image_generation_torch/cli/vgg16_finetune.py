@@ -148,10 +148,15 @@ def dropout_generator(epoch: int, step: int, device):
     """The dropout generator of one train step, seeded by (epoch, step)."""
     import torch
 
-    words = np.random.SeedSequence((DROPOUT_SEED, epoch, step)).generate_state(
-        2, np.uint32)
-    return torch.Generator(device).manual_seed(
-        int(words[0]) << 32 | int(words[1]))
+    from semantic_pyramid_for_image_generation_torch.utils.profiling import (
+        span,
+    )
+
+    with span("loop.rng"):
+        words = np.random.SeedSequence(
+            (DROPOUT_SEED, epoch, step)).generate_state(2, np.uint32)
+        return torch.Generator(device).manual_seed(
+            int(words[0]) << 32 | int(words[1]))
 
 
 def batch_to_device(images: np.ndarray, labels: np.ndarray, device):
@@ -159,8 +164,13 @@ def batch_to_device(images: np.ndarray, labels: np.ndarray, device):
     batch; labels (B,) int64) on `device`."""
     import torch
 
-    x = torch.from_numpy(np.asarray(images, np.float32)).to(device)
-    y = torch.from_numpy(np.asarray(labels)).to(device, torch.int64)
+    from semantic_pyramid_for_image_generation_torch.utils.profiling import (
+        span,
+    )
+
+    with span("loop.to_device"):
+        x = torch.from_numpy(np.asarray(images, np.float32)).to(device)
+        y = torch.from_numpy(np.asarray(labels)).to(device, torch.int64)
     return x.permute(0, 3, 1, 2), y
 
 
@@ -170,25 +180,35 @@ def make_finetune_step(model, optimizer):
     forward runs in training mode with dropout masks drawn from `rng` or
     pinned as `dropout_masks` (two boolean (B, fc) tensors); the loss is the
     mean float32 cross-entropy of the logits; one Adam step at the
-    optimizer's current lr; top1 is the training logits' accuracy."""
+    optimizer's current lr; top1 is the training logits' accuracy. The step
+    and its phases run under their spans (utils/profiling.py::span)."""
     import torch
     import torch.nn.functional as F
 
     from semantic_pyramid_for_image_generation_torch.utils.device import (
         exact_float32,
     )
+    from semantic_pyramid_for_image_generation_torch.utils.profiling import (
+        span,
+    )
 
     def train_step(images, labels, rng=None,
                    dropout_masks: Optional[Sequence] = None):
-        model.train()
-        with exact_float32():
-            logits = model(images, dropout_rng=rng, dropout_masks=dropout_masks)
-            loss = F.cross_entropy(logits.float(), labels)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            optimizer.step()
-        top1 = (logits.detach().argmax(-1) == labels).to(torch.float32).mean()
-        return loss.detach(), top1
+        with span("step"):
+            model.train()
+            with exact_float32():
+                with span("step.forward"):
+                    logits = model(images, dropout_rng=rng,
+                                   dropout_masks=dropout_masks)
+                    loss = F.cross_entropy(logits.float(), labels)
+                with span("step.backward"):
+                    optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+                with span("step.adam"):
+                    optimizer.step()
+            top1 = (logits.detach().argmax(-1) == labels).to(
+                torch.float32).mean()
+            return loss.detach(), top1
 
     return train_step
 
@@ -318,6 +338,10 @@ class FineTune:
         and are fetched for the log line every LOG_EVERY steps."""
         import torch
 
+        from semantic_pyramid_for_image_generation_torch.utils.profiling import (
+            span,
+        )
+
         args = self.args
         set_epoch_lr(self.optimizer, args.lr, epoch)
         sums = torch.zeros(2, device=self.device)
@@ -332,7 +356,8 @@ class FineTune:
             sums += torch.stack([loss, top1]) * len(labels)
             count += len(labels)
             if it % LOG_EVERY == 0:
-                loss_avg, top1_avg = (sums / count).tolist()
+                with span("loop.fetch_metrics"):
+                    loss_avg, top1_avg = (sums / count).tolist()
                 rate = (it + 1) * args.batch_size / (time.time() - t0)
                 print(f"epoch {epoch} it {it} loss {loss_avg:.4f} "
                       f"top1 {top1_avg * 100:.2f} ({rate:.1f} img/s)")

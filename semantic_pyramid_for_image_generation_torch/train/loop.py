@@ -85,15 +85,18 @@ from semantic_pyramid_for_image_generation_torch.utils.logger import (
     Logger,
     make_run_dirs,
 )
+from semantic_pyramid_for_image_generation_torch.utils.profiling import span
 
 GRID_LEVELS = 7
 
 
 def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
     """The latent generator of train step `step`: seeded by (seed, step)."""
-    words = np.random.SeedSequence((seed, step)).generate_state(2, np.uint32)
-    return torch.Generator(device).manual_seed(
-        int(words[0]) << 32 | int(words[1]))
+    with span("loop.rng"):
+        words = np.random.SeedSequence((seed, step)).generate_state(
+            2, np.uint32)
+        return torch.Generator(device).manual_seed(
+            int(words[0]) << 32 | int(words[1]))
 
 
 class Trainer:
@@ -174,8 +177,9 @@ class Trainer:
         if not pending:
             return None
         names = list(pending[0][0])
-        fetched = torch.stack([torch.stack([m[k] for k in names])
-                               for m, _, _ in pending]).cpu().tolist()
+        with span("loop.fetch_metrics"):
+            fetched = torch.stack([torch.stack([m[k] for k in names])
+                                   for m, _, _ in pending]).cpu().tolist()
         host = None
         for values, (_, samples_seen, epoch) in zip(fetched, pending):
             host = dict(zip(names, values))
@@ -297,7 +301,9 @@ class Trainer:
     def profile_steps(self, batch: Mapping[str, Any], log_dir: str,
                       steps: int = 3) -> None:
         """A torch.profiler chrome trace of `steps` train steps under
-        `log_dir` (utils/profiling.py)."""
+        `log_dir` (utils/profiling.py). The trace carries the phase spans
+        (`sp:loop.rng`, `sp:loop.to_device`, `sp:step` and the phases in
+        it; utils/profiling.py::span)."""
         from semantic_pyramid_for_image_generation_torch.utils.profiling import (
             trace,
         )

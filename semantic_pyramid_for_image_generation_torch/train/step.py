@@ -40,6 +40,7 @@ from semantic_pyramid_for_image_generation_torch.train.state import TrainState
 from semantic_pyramid_for_image_generation_torch.utils.device import (
     exact_float32,
 )
+from semantic_pyramid_for_image_generation_torch.utils.profiling import span
 
 Batch = Dict[str, Any]  # images (B,H,W,3), labels (B,classes), masks: 7-tuple
 
@@ -72,9 +73,10 @@ def batch_to_device(batch: Mapping[str, Any], device: torch.device) -> Batch:
     host-side `shard_rows` stays behind."""
     def put(a):
         return torch.as_tensor(np.asarray(a)).to(device)
-    out = {k: put(v) for k, v in batch.items()
-           if k not in ("masks", "shard_rows")}
-    out["masks"] = tuple(put(m) for m in batch["masks"])
+    with span("loop.to_device"):
+        out = {k: put(v) for k, v in batch.items()
+               if k not in ("masks", "shard_rows")}
+        out["masks"] = tuple(put(m) for m in batch["masks"])
     return out
 
 
@@ -160,6 +162,11 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
     config has `remat_blocks` (models/layers.py::remat); the recompute runs
     inside the step's `exact_float32`, as the forward does.
 
+    The step and each of its phases (the inputs, the pyramid, and the
+    forward, backward and Adam step of each phase) run under their spans
+    (utils/profiling.py::span), which cost a flag check with no profiler
+    recording.
+
     spectral_update: the test switch of the JAX step; False freezes u/v
     (every sigma reuses the stored vectors). float32 runs without TF32 in
     the forward and the backward (`exact_float32`).
@@ -179,6 +186,11 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
 
     def train_step(state: TrainState, batch: Batch,
                    rng: Optional[torch.Generator] = None):
+        with span("step"):
+            return _step(state, batch, rng)
+
+    def _step(state: TrainState, batch: Batch,
+              rng: Optional[torch.Generator]):
         generator, discriminator, vgg = (state.generator, state.discriminator,
                                          state.vgg)
         if fused_discriminator and discriminator.config.compat_projection:
@@ -190,9 +202,10 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
         vgg.eval()
         for net in (generator, discriminator):
             set_spectral_update_(net, spectral_update)
-        images = _nchw(ensure_m11_images(batch["images"]))
-        labels = batch["labels"].float()
-        masks = _float_masks(batch["masks"])
+        with span("step.inputs"):
+            images = _nchw(ensure_m11_images(batch["images"]))
+            labels = batch["labels"].float()
+            masks = _float_masks(batch["masks"])
         b, latent_dim = images.shape[0], generator.config.latent_dim
 
         def noise(key: str) -> torch.Tensor:
@@ -204,39 +217,48 @@ def make_train_step(w_rec: float = DEFAULT_W_REC,
 
         with exact_float32():
             # ---- the frozen-VGG pyramid of the real batch
-            with torch.no_grad():
+            with span("step.pyramid.forward"), torch.no_grad():
                 features_real = vgg(images)
             # ---- discriminator phase
-            noise_d = noise("noise_d")
-            with torch.no_grad():
-                fake_d = generator(noise_d, features_real, masks, labels)
-            if fused_discriminator:
-                pred_real, pred_fake = discriminate_fused(
-                    discriminator, images, fake_d, labels)
-            else:
-                pred_real = discriminator(images, labels)
-                pred_fake = discriminator(fake_d, labels)
-            loss_d_real, loss_d_fake = lsgan_discriminator_loss(
-                pred_real, pred_fake)
-            state.d_optimizer.zero_grad(set_to_none=True)
-            (loss_d_real + loss_d_fake).backward()
-            all_reduce_gradients(discriminator)
-            state.d_optimizer.step()
+            with span("step.d_phase.forward"):
+                noise_d = noise("noise_d")
+                with torch.no_grad():
+                    fake_d = generator(noise_d, features_real, masks, labels)
+                if fused_discriminator:
+                    pred_real, pred_fake = discriminate_fused(
+                        discriminator, images, fake_d, labels)
+                else:
+                    pred_real = discriminator(images, labels)
+                    pred_fake = discriminator(fake_d, labels)
+                loss_d_real, loss_d_fake = lsgan_discriminator_loss(
+                    pred_real, pred_fake)
+            with span("step.d_phase.backward"):
+                state.d_optimizer.zero_grad(set_to_none=True)
+                (loss_d_real + loss_d_fake).backward()
+                all_reduce_gradients(discriminator)
+            with span("step.d_phase.adam"):
+                state.d_optimizer.step()
             # ---- generator phase (sees the updated discriminator)
             with (frozen(discriminator) if is_sharded(discriminator)
                   else contextlib.nullcontext()):
-                noise_g = noise("noise_g")
-                fake = generator(noise_g, features_real, masks, labels)
-                loss_g = lsgan_generator_loss(discriminator(fake, labels))
-                loss_div = w_div * diversity_loss(fake, noise_g)
-                features_fake = (checkpoint(vgg, fake, use_reentrant=False)
-                                 if remat_vgg else vgg(fake))
-                loss_rec = w_rec * semantic_reconstruction_loss(
-                    features_real, features_fake, masks)
-                state.g_optimizer.zero_grad(set_to_none=True)
-                backward_generator(loss_g + loss_div + loss_rec, generator)
-            all_reduce_gradients(generator)
-            state.g_optimizer.step()
+                with span("step.g_phase.forward"):
+                    noise_g = noise("noise_g")
+                    fake = generator(noise_g, features_real, masks, labels)
+                    loss_g = lsgan_generator_loss(discriminator(fake, labels))
+                    loss_div = w_div * diversity_loss(fake, noise_g)
+                    features_fake = (checkpoint(vgg, fake, use_reentrant=False)
+                                     if remat_vgg else vgg(fake))
+                    loss_rec = w_rec * semantic_reconstruction_loss(
+                        features_real, features_fake, masks)
+                # G's gradients are summed while D is still frozen: the sum
+                # reads G's gradients alone
+                with span("step.g_phase.backward"):
+                    state.g_optimizer.zero_grad(set_to_none=True)
+                    backward_generator(loss_g + loss_div + loss_rec,
+                                       generator)
+                    all_reduce_gradients(generator)
+            with span("step.g_phase.adam"):
+                state.g_optimizer.step()
         state.step += 1
         metrics = {
             # the reference logger's names

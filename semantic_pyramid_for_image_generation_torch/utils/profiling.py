@@ -7,6 +7,17 @@ and, where there is one, the card, and writes it as a chrome trace
 `iteration_ms` times a call on the card with CUDA events (the host clock on
 the CPU), and `launches_of` counts the port kernels one call launches: the
 scripts' microbenchmarks use both.
+
+`span(name)` names a phase of the train loop or the train step in a
+profiler's trace, as the range `sp:<name>` (a `user_annotation` on the
+host's timeline, on the same clock as the device operations it launches).
+It is gated on `torch.autograd.profiler._is_profiler_enabled`: with no
+profiler recording it enters no `record_function` and costs one flag check.
+The spans: `sp:loop.rng`, `sp:loop.to_device` and `sp:loop.fetch_metrics`
+around the loop's work between steps; `sp:step` around a whole step, with
+its phases inside it (`sp:step.inputs`, `sp:step.pyramid.forward`,
+`sp:step.{d,g}_phase.{forward,backward,adam}` of the GAN step,
+`sp:step.{forward,backward,adam}` of the fine-tune step).
 """
 
 from __future__ import annotations
@@ -17,6 +28,19 @@ import time
 from typing import Callable, Dict, Iterator, List
 
 import torch
+
+SPAN_PREFIX = "sp:"  # unlike the benchmark's `bench:` and aten / spig ops
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str) -> contextlib.AbstractContextManager:
+    """A `with` block named `sp:<name>` in the trace of a running profiler;
+    with none running, one shared no-op context. The flag is read from its
+    module at each call, as the profiler sets it there when it starts and
+    stops."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
