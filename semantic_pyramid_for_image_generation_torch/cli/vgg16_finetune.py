@@ -160,17 +160,27 @@ def dropout_generator(epoch: int, step: int, device):
 
 
 def batch_to_device(images: np.ndarray, labels: np.ndarray, device):
-    """A loader batch -> (images (B, 3, H, W), the NCHW view of the NHWC
-    batch; labels (B,) int64) on `device`."""
+    """A loader batch -> (images (B, 3, H, W) float32, the NCHW view of the
+    NHWC batch; labels (B,) int64) on `device`, copied from the caller's
+    arrays by `utils/device.py::arrays_to_device`. On a CUDA device the copy
+    is asynchronous: the arrays go through a pinned slot and a copy stream,
+    and the current stream waits for them; the host blocks only until the
+    work queued before the previous call is done (in the train loop, the
+    step before last), so it runs one batch ahead. On the CPU a plain
+    copy."""
     import torch
 
+    from semantic_pyramid_for_image_generation_torch.utils.device import (
+        arrays_to_device,
+    )
     from semantic_pyramid_for_image_generation_torch.utils.profiling import (
         span,
     )
 
     with span("loop.to_device"):
-        x = torch.from_numpy(np.asarray(images, np.float32)).to(device)
-        y = torch.from_numpy(np.asarray(labels)).to(device, torch.int64)
+        x, y = arrays_to_device(
+            [np.asarray(images, np.float32), np.asarray(labels)],
+            [torch.float32, torch.int64], device)
     return x.permute(0, 3, 1, 2), y
 
 

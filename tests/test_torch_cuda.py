@@ -674,6 +674,149 @@ def test_dropout_masks_from_a_seeded_generator_repeat(cuda):
     assert 0.49 < float(a.float().mean()) < 0.51
 
 
+# ------------------------------- the fine-tune batch's staged copy --
+
+STAGED_SHAPE = (32, 256, 256, 3)  # 25 MB of float32: a copy of ~1 ms
+SLEEP_CYCLES = 500_000_000  # a queued kernel of a quarter second or more
+
+
+def _host_batch(rng, shape=STAGED_SHAPE, classes=365):
+    return (rng.standard_normal(shape).astype("float32"),
+            rng.integers(0, classes, shape[0]).astype("int32"))
+
+
+def _plain_batch_to_device(images, labels, device):
+    """The fine-tune CLI's batch copy as plain blocking `.to()` calls."""
+    import numpy as np
+
+    x = torch.from_numpy(np.asarray(images, np.float32)).to(device)
+    return (x.permute(0, 3, 1, 2),
+            torch.from_numpy(np.asarray(labels)).to(device, torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pending", [False, True])
+def test_staged_batches_are_the_callers_bytes(cuda, pending):
+    """Six batches in a row, each array overwritten on the host right after
+    its call and each result read on the current stream at once (a clone
+    queued before anything waits): every clone is bitwise its batch, the
+    labels int64. With `pending`, a quarter second of kernels is queued on
+    the current stream first, so the host runs ahead of the device."""
+    import numpy as np
+
+    from semantic_pyramid_for_image_generation_torch.cli import (
+        vgg16_finetune as ft,
+    )
+
+    rng = np.random.default_rng(0)
+    if pending:
+        torch.cuda._sleep(SLEEP_CYCLES)
+    kept, got = [], []
+    for _ in range(6):
+        images, labels = _host_batch(rng)
+        kept.append((images.copy(), labels.copy()))
+        x, y = ft.batch_to_device(images, labels, cuda)
+        got.append((x.clone(), y.clone()))
+        images[:] = np.nan
+        labels[:] = -1
+    for (images, labels), (x, y) in zip(kept, got):
+        assert x.dtype == torch.float32 and y.dtype == torch.int64
+        assert x.shape == (32, 3, 256, 256)
+        assert torch.equal(x.permute(0, 2, 3, 1).cpu(),
+                           torch.from_numpy(images))
+        assert torch.equal(y.cpu(), torch.from_numpy(labels).long())
+
+
+@pytest.mark.cuda
+def test_staged_slot_takes_a_shorter_and_a_strided_batch(cuda):
+    """Full batches, then a shorter one (a view of the same slot), a
+    strided float64 one (cast by numpy, as the plain path casts it), and a
+    full one again: shapes, dtypes and values as the plain copy's."""
+    import numpy as np
+
+    from semantic_pyramid_for_image_generation_torch.cli import (
+        vgg16_finetune as ft,
+    )
+
+    rng = np.random.default_rng(1)
+    wide = rng.standard_normal((16, 256, 512, 3))
+    batches = [_host_batch(rng), _host_batch(rng),
+               _host_batch(rng, (5, 256, 256, 3)),
+               (wide[:, :, ::2], rng.integers(0, 365, 16)),
+               _host_batch(rng)]
+    for images, labels in batches:
+        x, y = ft.batch_to_device(images, labels, cuda)
+        want_x, want_y = _plain_batch_to_device(images, labels, cuda)
+        assert x.shape == want_x.shape and x.stride() == want_x.stride()
+        assert x.dtype == want_x.dtype and y.dtype == want_y.dtype
+        assert torch.equal(x, want_x) and torch.equal(y, want_y)
+
+
+@pytest.mark.cuda
+def test_staged_copy_counts_and_runs_one_batch_ahead(cuda):
+    """Each call counts once as staged. Behind a quarter second of queued
+    kernels the host returns from the first call at once, and from each
+    later one only when the work queued before the call before it is done:
+    it runs one batch ahead, so at most two batches of input live on the
+    card."""
+    import numpy as np
+
+    from semantic_pyramid_for_image_generation_torch.cli import (
+        vgg16_finetune as ft,
+    )
+    from semantic_pyramid_for_image_generation_torch.utils.device import (
+        to_device_counts,
+    )
+
+    rng = np.random.default_rng(2)
+    batches = [_host_batch(rng, (4, 32, 32, 3)) for _ in range(3)]
+    ft.batch_to_device(*batches[0], cuda)  # the slots exist
+    ft.batch_to_device(*batches[0], cuda)
+    torch.cuda.synchronize()
+    before = to_device_counts()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    slept = torch.cuda.Event()
+    slept.record()
+    done = []
+    for images, labels in batches:
+        x, _ = ft.batch_to_device(images, labels, cuda)
+        x.sum()  # the step that reads the batch
+        done.append(slept.query())
+    assert done == [False, True, True]
+    after = to_device_counts()
+    assert after == {"staged": before["staged"] + 3,
+                     "plain": before["plain"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_finetune_steps_on_staged_batches_are_bitwise_plain(cuda,
+                                                           monkeypatch, seed):
+    """The tiny two-step fp32 fine-tune of the card-vs-CPU check above, on
+    staged batches and on plain blocking `.to()` batches: losses, top-1 and
+    every parameter and buffer bitwise equal. Both run under deterministic
+    algorithms: without them the first convolution's weight (3 input
+    channels) came out not bitwise equal while the losses were, as
+    cuDNN's default weight-gradient algorithm is not run-to-run
+    deterministic."""
+    from semantic_pyramid_for_image_generation_torch.cli import (
+        vgg16_finetune as ft,
+    )
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        staged_metrics, staged = _tiny_finetune(cuda, seed)
+        monkeypatch.setattr(ft, "batch_to_device", _plain_batch_to_device)
+        plain_metrics, plain = _tiny_finetune(cuda, seed)
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    assert staged_metrics == plain_metrics
+    for key, value in plain.items():
+        assert torch.equal(staged[key], value), key
+
+
 # ------------------------------------------- data parallel on one card --
 
 PARALLEL_LIMITS = {"metrics": 1e-4, "generator_off": 1e-3,

@@ -217,6 +217,45 @@ def test_dropout_masks_are_seeded_and_applied_as_flax():
     torch.testing.assert_close(dropped, bias.expand(2, -1), rtol=0, atol=0)
 
 
+# --------------------------------------------------- the batch's copy --
+
+
+def _noncontiguous_float64(n, classes, seed):
+    """A float64 NHWC batch that is a strided view (every other row and
+    column of a larger array), with int64 labels."""
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((n, 2 * IMG, 2 * IMG, 3))[:, ::2, ::2]
+    return images, rng.integers(0, classes, n)
+
+
+@pytest.mark.parametrize("source", [_batch, _noncontiguous_float64])
+def test_batch_to_device_on_cpu_is_the_plain_copy(source):
+    """On the CPU the batch takes the plain path: float32 images as the
+    NCHW permute of the NHWC array numpy casts, int64 labels, the values
+    unchanged, strides those of the permuted NHWC batch."""
+    images, labels = source(5, 3, seed=1)
+    want = torch.from_numpy(np.asarray(images, np.float32)).permute(0, 3, 1, 2)
+    x, y = ft.batch_to_device(images, labels, CPU)
+    assert x.dtype == torch.float32 and y.dtype == torch.int64
+    assert x.shape == (5, 3, IMG, IMG) and y.shape == (5,)
+    assert x.stride() == want.stride()
+    assert torch.equal(x, want)
+    np.testing.assert_array_equal(y.numpy(), labels)
+
+
+def test_batch_to_device_on_cpu_counts_plain_copies():
+    from semantic_pyramid_for_image_generation_torch.utils.device import (
+        to_device_counts,
+    )
+
+    before = to_device_counts()
+    for seed in range(3):
+        ft.batch_to_device(*_batch(2, 3, seed=seed), CPU)
+    after = to_device_counts()
+    assert after == {"staged": before["staged"],
+                     "plain": before["plain"] + 3}
+
+
 # ------------------------------------------------------ eval, validation --
 
 
