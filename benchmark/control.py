@@ -5,13 +5,15 @@ several seeds in one process (the card's set-up paid once per seed):
         [--control-seeds 1,2,3] [--seconds 3]
 
 For each seed: the program's numbers, as a run of the cell computes them.
-For each control seed besides: the reference put in the program's place at
-the precision below the configuration's (float8 operands), and the
-training cells' planted faults in the reference (the losses taken over
-half of the batch's rows; a learning rate of 0, which leaves the state
-unchanged), each held against the float32 reference the same way. One JSON
-line per seed, with the leaves behind its worst-leaf numbers, then the
-largest program reading and the smallest control reading of each number.
+For each control seed besides: each of the cell's entry's `CONTROLS`, read
+by its `control_readings` and held against the float32 reference by its
+`gaps` (for a training entry: the reference put in the program's place at
+the precision below the configuration's, float8 operands, and the planted
+faults in the reference, the losses taken over half of the batch's rows
+and a learning rate of 0, which leaves the state unchanged). One JSON line
+per seed, with the leaves behind its worst-leaf numbers (of training
+readings), then the largest program reading and the smallest control
+reading of each number.
 """
 
 from __future__ import annotations
@@ -32,26 +34,15 @@ def seeds_of(text: str) -> list:
     return [int(s) for s in text.split(",") if s]
 
 
-def training_controls(entry, session, cell) -> tuple:
-    """({control: numbers}, {control: readings}) of the float8 control and
-    the planted faults, against the session's float32 reference."""
-    cfg = cell.config
-    fp32 = session.readings["reference"]
-    device = session.device
+def training_controls(entry, session) -> tuple:
+    """({control: numbers}, {control: readings}) of each of the entry's
+    CONTROLS (the float8 control and the planted faults), its readings
+    against the session's float32 reference by the entry's `gaps`."""
+    reference = session.readings["reference"]
     out, planted = {}, {}
-    for name, kwargs in (("fp8", {"precision": "fp8"}),
-                         ("half_batch",
-                          {"batch_rows": cell.traffic["batch"] // 2}),
-                         ("no_update", {"lr": 0.0})):
-        if cell.traffic["entry"] == "gan_train":
-            readings = entry.reference_readings(
-                cfg, session.weights, session.batches, 3,
-                session.trainer_seed, device, **kwargs)
-        else:
-            readings = entry.reference_readings(
-                cfg, session.weights, session.batches, 3, device, **kwargs)
-        out[name] = entry.common.training_gaps(readings, fp32)
-        planted[name] = readings
+    for name in entry.CONTROLS:
+        planted[name] = entry.control_readings(session, name)
+        out[name] = entry.gaps(planted[name], reference)
     return out, planted
 
 
@@ -62,6 +53,8 @@ def worst_leaves(readings: dict, reference: dict, top: int = 3) -> dict:
     from benchmark.entries import common
 
     out = {}
+    if "grads" not in reference:  # not training readings
+        return out
     for kind in ("grads", "change"):
         rows = []
         for group, ref in reference[kind].items():
@@ -113,7 +106,7 @@ def main(argv=None) -> int:
         row["worst_leaves"] = worst_leaves(readings["program"],
                                            readings["reference"])
         if seed in controls:
-            row["controls"], planted = training_controls(entry, session, cell)
+            row["controls"], planted = training_controls(entry, session)
             for name, numbers in row["controls"].items():
                 row[f"worst_leaves_{name}"] = worst_leaves(
                     planted[name], readings["reference"])

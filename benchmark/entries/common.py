@@ -1,12 +1,15 @@
 """What the entries share: the seed's streams, the program's configuration
 from a configuration file, the training readings the reference is held to,
-and the gaps between two sets of readings."""
+the gaps between two sets of readings, and the training cells' controls and
+planted faults."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 import statistics
 from typing import Dict, List
+from unittest import mock
 
 import numpy as np
 import torch
@@ -157,3 +160,51 @@ def changes(params: Dict[str, torch.Tensor], start: Dict[str, torch.Tensor]
             ) -> Dict[str, torch.Tensor]:
     return {k: params[k].detach().float() - start[k] for k in params}
 
+
+# A training cell's controls, each the reference in the program's place:
+# float8 operands (the precision below the configurations' bfloat16), and
+# the planted faults the cell can have, the losses over half of the batch's
+# rows and a learning rate of 0 (the state left unchanged).
+TRAINING_CONTROLS = ("fp8", "half_batch", "no_update")
+
+
+def training_control(control: str, batch: int) -> dict:
+    """The keyword arguments that plant `control` in an entry's
+    `reference_readings` for a cell of `batch` rows a step."""
+    return {"fp8": {"precision": "fp8"},
+            "half_batch": {"batch_rows": batch // 2},
+            "no_update": {"lr": 0.0}}[control]
+
+
+def drop_updates(optimizers) -> None:
+    """A planted fault: every optimizer step a no-op."""
+    for opt in optimizers:
+        opt.step = lambda *args, **kwargs: None
+
+
+def _first_rows(x):
+    """The first half of the rows of a tensor, or of each in a sequence."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_first_rows(t) for t in x)
+    return x[:x.shape[0] // 2] if isinstance(x, torch.Tensor) else x
+
+
+def losses_on_half_batch(owner, attr: str, module, names) -> None:
+    """A planted fault: while `owner.attr` (the program's step) runs, each
+    loss `module.<name>` takes the mean over the first half of its rows
+    alone; the forwards still run on every row."""
+    patches = [mock.patch.object(module, name, _on_first_rows(
+        getattr(module, name))) for name in names]
+    inner = getattr(owner, attr)
+
+    def half(*args, **kwargs):
+        with contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            return inner(*args, **kwargs)
+
+    setattr(owner, attr, half)
+
+
+def _on_first_rows(loss):
+    return lambda *args: loss(*(_first_rows(a) for a in args))

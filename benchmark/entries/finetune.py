@@ -31,6 +31,23 @@ from benchmark.weights import make_weights
 EPOCH = 0
 DROPOUT_SEED = 1  # the CLI's dropout streams
 
+# What the benchmark's tests and `control.py` read of this kind of work
+# (README.md, "A new kind of work"): the test size, the float32 tolerance
+# of each number its cells compare, whether its step opens the program's
+# `sp:step` spans, its controls and their gaps; FAULTS and
+# `control_readings` follow the reference below.
+TEST_CONFIG = {"channels_factor": 8.0, "vgg_width_factor": 8,
+               "num_classes": 16}
+TEST_TRAFFIC = {"batch": 4, "pool": 3, "subwindow_units": [1, 1]}
+# round-off between two float32 computations of the same arithmetic in
+# another order: Adam's first steps move a near-zero gradient's leaf by
+# about lr whatever its sign, so the change of the parameters is looser
+FLOAT32_GAPS = {"loss_gap": 1e-4, "grad_gap": 1e-3, "change_gap": 1e-2,
+                "first_output_err": 1e-4}
+OPENS_STEP_SPANS = True  # `cli/vgg16_finetune.py::make_finetune_step`
+CONTROLS = common.TRAINING_CONTROLS
+gaps = common.training_gaps
+
 
 def dropout_masks(step: int, rows: int, features: int, device: torch.device):
     """The two keep masks the CLI's step `step` of epoch 0 draws: a generator
@@ -176,3 +193,28 @@ def reference_step_flops(cfg: dict, rows: int) -> int:
     with counter:
         tuner.step(x, y, masks)
     return counter.get_total_flops()
+
+
+def _state_unchanged(session) -> None:
+    """The step's updates dropped: Adam's step is a no-op."""
+    common.drop_updates([session.optimizer])
+
+
+def _half_batch(session) -> None:
+    """Half of the batch left out: the forward runs on every row, and the
+    cross-entropy is the mean over the first half's rows alone."""
+    common.losses_on_half_batch(session, "train_step", torch.nn.functional,
+                                ("cross_entropy",))
+
+
+# the faults planted in the program by the tests, `tamper(session)` each
+FAULTS = {"state_unchanged": _state_unchanged, "half_batch": _half_batch}
+
+
+def control_readings(session, control: str) -> dict:
+    """The reference's readings under `control` (one of CONTROLS) from the
+    session's weights and batches over its checked steps."""
+    return reference_readings(
+        session.cell.config, session.weights, session.batches,
+        len(session.checked_losses), session.device,
+        **common.training_control(control, session.batch))

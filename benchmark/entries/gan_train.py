@@ -31,6 +31,23 @@ from benchmark.reference.common import exact_float32
 
 METRIC_NAMES = ref_gan.LOSS_NAMES
 
+# What the benchmark's tests and `control.py` read of this kind of work
+# (README.md, "A new kind of work"): the test size, the float32 tolerance
+# of each number its cells compare, whether its step opens the program's
+# `sp:step` spans, its controls and their gaps; FAULTS and
+# `control_readings` follow the reference below.
+TEST_CONFIG = {"channels_factor": 8.0, "vgg_width_factor": 8,
+               "num_classes": 16}
+TEST_TRAFFIC = {"batch": 4, "pool": 3, "subwindow_units": [1, 1]}
+# round-off between two float32 computations of the same arithmetic in
+# another order: Adam's first steps move a near-zero gradient's leaf by
+# about lr whatever its sign, so the change of the parameters is looser
+FLOAT32_GAPS = {"loss_gap": 1e-4, "grad_p90_gap": 1e-3, "change_gap": 1e-2,
+                "first_output_err": 1e-4}
+OPENS_STEP_SPANS = True  # `train/step.py::make_train_step`'s spans
+CONTROLS = common.TRAINING_CONTROLS
+gaps = common.training_gaps
+
 
 def latents(seed: int, step: int, rows: int, latent_dim: int,
             device: torch.device):
@@ -224,3 +241,33 @@ def reference_step_flops(cfg: dict, rows: int) -> int:
     with counter:
         trainer.step(batch, noise, noise)
     return counter.get_total_flops()
+
+
+def _state_unchanged(session) -> None:
+    """The step's updates dropped: both Adams' steps are no-ops."""
+    state = session.trainer.state
+    common.drop_updates([state.g_optimizer, state.d_optimizer])
+
+
+def _half_batch(session) -> None:
+    """Half of the batch left out: the forwards run on every row, and each
+    of the step's losses is the mean over the first half's rows alone."""
+    from semantic_pyramid_for_image_generation_torch.train import step
+
+    common.losses_on_half_batch(
+        session.trainer, "step_fn", step,
+        ("lsgan_discriminator_loss", "lsgan_generator_loss",
+         "diversity_loss", "semantic_reconstruction_loss"))
+
+
+# the faults planted in the program by the tests, `tamper(session)` each
+FAULTS = {"state_unchanged": _state_unchanged, "half_batch": _half_batch}
+
+
+def control_readings(session, control: str) -> dict:
+    """The reference's readings under `control` (one of CONTROLS) from the
+    session's weights, batches and latents over its checked steps."""
+    return reference_readings(
+        session.cell.config, session.weights, session.batches,
+        len(session.checked_losses), session.trainer_seed, session.device,
+        **common.training_control(control, session.batch))

@@ -1,47 +1,51 @@
 """CPU rehearsals of every cell at a small size: the result line's keys and
 the metrics' names and units as BENCHMARK.json declares them; the plain
 reference held against the program at float32 (both sides compute the same
-arithmetic, so the gaps are round-off); the planted faults come out not
-correct."""
+arithmetic, so the gaps are round-off, within the tolerances the cell's
+entry declares); the planted faults the entry declares come out not
+correct; each entry declares what the tests and `control.py` read of it.
+The checks take the root of a benchmark, so that `test_bench_extend.py`
+holds a kind of work added as new files to the same ones."""
 
 from __future__ import annotations
 
-import contextlib
 import json
 import time
-from unittest import mock
 
 import pytest
 import torch
 
 from benchmark import harness
-from benchmark.tests.conftest import ROOT, SEED, run_small
+from benchmark.tests.conftest import (
+    ROOT,
+    SEED,
+    bench,
+    cells,
+    entry_of,
+    run_small,
+)
 
-BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
-CELLS = [w["name"] for w in BENCH["workloads"]]
-# round-off between two float32 computations of the same arithmetic in
-# another order: Adam's first steps move a near-zero gradient's leaf by
-# about lr whatever its sign, so the change of the parameters is looser
-FLOAT32_GAPS = {"loss_gap": 1e-4, "grad_gap": 1e-3, "grad_p90_gap": 1e-3,
-                "change_gap": 1e-2, "first_output_err": 1e-4}
+CELLS = cells()
+# the faults every training cell can have (a cell that reports the
+# training rate is one)
+TRAINING_FAULTS = ("state_unchanged", "half_batch")
+SESSION = ("window", "subwindow", "finish", "step_flops", "check")
 
 
-def declared(cell: str, trace: bool) -> dict:
+def declared(cell: str, trace: bool, root=ROOT) -> dict:
     kind = "per_layer" if trace else "end_to_end"
-    return {m["name"]: m["unit"] for m in BENCH[kind]
+    return {m["name"]: m["unit"] for m in bench(root)[kind]
             if cell in m.get("workloads", [cell])}
 
 
-@pytest.mark.parametrize("trace", [False, True])
-@pytest.mark.parametrize("cell", CELLS)
-def test_cell_runs_and_holds_to_the_reference(cell, trace):
-    result = run_small(cell, trace=trace)
+def holds_to_the_reference(cell: str, trace: bool, root=ROOT) -> None:
+    result = run_small(cell, trace=trace, root=root)
     assert list(result)[:5] == ["correct", "attempted", "failed", "metrics",
                                 "device"]
     assert list(result)[-1] == "checks"
     assert result["correct"] is True, result["checks"]
     assert result["failed"] == 0 and result["attempted"] > 0
-    units = declared(cell, trace)
+    units = declared(cell, trace, root)
     for name, metric in result["metrics"].items():
         assert units[name] == metric["unit"]
     if not trace:  # every end-to-end metric is there; readers may be silent
@@ -49,72 +53,57 @@ def test_cell_runs_and_holds_to_the_reference(cell, trace):
     else:
         assert set(result["device"]) >= {"busy_s", "window_s"}
         assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
+    tolerances = entry_of(cell, root).FLOAT32_GAPS
     for name, check in result["checks"].items():
-        assert check["value"] <= FLOAT32_GAPS[name], (name, check)
+        assert name in tolerances, f"no float32 tolerance for {name}"
+        assert check["value"] <= tolerances[name], (name, check)
     json.loads(json.dumps(result))
 
 
-def _state_unchanged(session):
-    """The step's updates dropped: every optimizer step a no-op."""
-    for opt in _optimizers(session):
-        opt.step = lambda *args, **kwargs: None
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_runs_and_holds_to_the_reference(cell, trace):
+    holds_to_the_reference(cell, trace)
 
 
-def _optimizers(session):
-    if hasattr(session, "trainer"):
-        return [session.trainer.state.g_optimizer,
-                session.trainer.state.d_optimizer]
-    return [session.optimizer]
+def entry_contract(cell: str, root=ROOT) -> None:
+    """What the harness, the tests and `control.py` read of the cell's
+    entry is there (README.md, "A new kind of work")."""
+    loaded = harness.load_cell(root, cell)
+    entry = entry_of(cell, root)
+    for method in SESSION:
+        assert callable(getattr(entry.Session, method)), method
+    assert isinstance(entry.TEST_CONFIG, dict)
+    assert isinstance(entry.TEST_TRAFFIC, dict)
+    missing = set(loaded.limits) - set(entry.FLOAT32_GAPS)
+    assert not missing, f"no float32 tolerance for {sorted(missing)}"
+    assert entry.FAULTS and all(callable(f) for f in entry.FAULTS.values())
+    if "train_images_per_s" in {m["name"] for m in loaded.end_to_end}:
+        assert set(TRAINING_FAULTS) <= set(entry.FAULTS), sorted(entry.FAULTS)
+    assert entry.CONTROLS
+    assert callable(entry.control_readings) and callable(entry.gaps)
+    assert isinstance(entry.OPENS_STEP_SPANS, bool)
 
 
-def _first_rows(x):
-    """The first half of the rows of a tensor, or of each in a sequence."""
-    if isinstance(x, (list, tuple)):
-        return type(x)(_first_rows(t) for t in x)
-    return x[:x.shape[0] // 2] if isinstance(x, torch.Tensor) else x
+@pytest.mark.parametrize("cell", CELLS)
+def test_entry_declares_the_contract(cell):
+    entry_contract(cell)
 
 
-def _on_first_rows(loss):
-    return lambda *args: loss(*(_first_rows(a) for a in args))
+def fault_is_not_correct(cell: str, fault: str, root=ROOT) -> None:
+    tamper = entry_of(cell, root).FAULTS[fault]
+    result = run_small(cell, tamper=tamper, root=root)
+    assert result["correct"] is False, result["checks"]
 
 
-def _half_batch(session):
-    """Half of the batch left out: the forwards run on every row, and each
-    loss is the mean over the first half's rows alone."""
-    if hasattr(session, "trainer"):
-        from semantic_pyramid_for_image_generation_torch.train import step
-
-        names = ("lsgan_discriminator_loss", "lsgan_generator_loss",
-                 "diversity_loss", "semantic_reconstruction_loss")
-        patches = [mock.patch.object(step, name,
-                                     _on_first_rows(getattr(step, name)))
-                   for name in names]
-        owner, attr = session.trainer, "step_fn"
-    else:
-        patches = [mock.patch.object(
-            torch.nn.functional, "cross_entropy",
-            _on_first_rows(torch.nn.functional.cross_entropy))]
-        owner, attr = session, "train_step"
-    inner = getattr(owner, attr)
-
-    def half(*args, **kwargs):
-        with contextlib.ExitStack() as stack:
-            for patch in patches:
-                stack.enter_context(patch)
-            return inner(*args, **kwargs)
-
-    setattr(owner, attr, half)
-
-
-FAULTS = [(cell, f) for cell in CELLS
-          for f in (_state_unchanged, _half_batch)]
+FAULTS = [(cell, fault) for cell in CELLS
+          for fault in entry_of(cell).FAULTS]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS,
-                         ids=[f"{c}-{f.__name__[1:]}" for c, f in FAULTS])
+                         ids=[f"{c}-{f}" for c, f in FAULTS])
 def test_planted_fault_is_not_correct(cell, fault):
-    result = run_small(cell, tamper=fault)
-    assert result["correct"] is False, result["checks"]
+    fault_is_not_correct(cell, fault)
 
 
 @pytest.mark.cuda

@@ -31,10 +31,10 @@ def loaded_after(code: str) -> set:
 
 
 def test_a_run_loads_nothing_forbidden():
-    """A whole small run of every cell, in a fresh process."""
-    code = ("from benchmark.tests.conftest import run_small\n"
-            "for cell in ('sp-gan-256.train-b128',"
-            " 'vgg16-places365.finetune-b256'):\n"
+    """A whole small run of every cell of BENCHMARK.json, in a fresh
+    process."""
+    code = ("from benchmark.tests.conftest import cells, run_small\n"
+            "for cell in cells():\n"
             "    run_small(cell, trace=True)")
     loaded = loaded_after(code)
     assert PROGRAM in loaded  # the program under test did run

@@ -3,21 +3,19 @@ it) on a hand-written trace: device operations put down to the innermost
 span open at their launch, on any thread; idle gaps to the span open at
 their start; exact launch counts; the per-phase device times within the
 busy time; the accepted readers blind to the spans; BENCHMARK.json's seven
-entries."""
+entries, each reported by exactly the cells whose entry opens the program's
+`sp:step` spans."""
 
 from __future__ import annotations
-
-import json
 
 import pytest
 
 from benchmark import harness, spans
 from benchmark import trace as tr
-from benchmark.tests.conftest import ROOT, small_cell
+from benchmark.tests.conftest import ROOT, bench, cells, entry_of, small_cell
 from benchmark.tests.test_bench_yardstick import TRACE as ACCEPTED_TRACE
 
-BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
-CELLS = [w["name"] for w in BENCH["workloads"]]
+CELLS = cells()
 UNITS = 2
 NEW = {"device_ms.to_device": ("ms", "train loop"),
        "idle_ms.loop": ("ms", "train loop"),
@@ -174,12 +172,22 @@ def test_silent_off_the_card_and_without_spans(name):
     assert _read(name, _record(TRACE)) is not None
 
 
-def test_benchmark_json_has_the_seven_span_metrics():
-    entries = {m["name"]: m for m in BENCH["per_layer"]}
+def span_metrics_declared(root=ROOT) -> None:
+    """The seven entries of `root`/BENCHMARK.json, each reported by the
+    cells whose entry opens the spans, and by no other."""
+    declared = bench(root)
+    opening = [c for c in cells(root) if entry_of(c, root).OPENS_STEP_SPANS]
+    entries = {m["name"]: m for m in declared["per_layer"]}
     for name, (unit, layer) in NEW.items():
         m = entries[name]
         assert m == {"name": name, "unit": unit, "better": "lower",
                      "source": "device_trace", "layer": layer,
-                     "moves": "train_images_per_s", "workloads": CELLS}
-        assert (ROOT / "benchmark" / "metrics" / f"{name}.py").exists()
-    assert [m["name"] for m in BENCH["per_layer"]][-len(NEW):] == list(NEW)
+                     "moves": "train_images_per_s", "workloads": opening}
+        assert (root / "benchmark" / "metrics" / f"{name}.py").exists()
+    names = [m["name"] for m in declared["per_layer"]]
+    first = names.index(next(iter(NEW)))  # together, in this order
+    assert names[first:first + len(NEW)] == list(NEW)
+
+
+def test_benchmark_json_has_the_seven_span_metrics():
+    span_metrics_declared()

@@ -16,10 +16,8 @@ from benchmark import harness, peaks, traffic
 from benchmark import trace as tr
 from benchmark.entries import finetune, gan_train
 from benchmark.reference import gan as ref_gan
-from benchmark.tests.conftest import ROOT, SEED, small_cell
+from benchmark.tests.conftest import ROOT, SEED, bench, small_cell
 from benchmark.weights import make_weights
-
-BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 
 
 def _cpu(name, ts, dur, ext, dims=(), types=(), tid=1):
@@ -166,37 +164,43 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
 
-def test_benchmark_json_has_the_contract_form():
-    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
-                          "workloads", "end_to_end", "per_layer"}
-    assert BENCH["paths"] == ["benchmark"]
-    for c in BENCH["configs"]:
+def contract_form(root=ROOT) -> None:
+    """`root`/BENCHMARK.json has the contract's form and its files."""
+    declared = bench(root)
+    assert set(declared) == {"command", "paths", "run_seconds", "configs",
+                             "workloads", "end_to_end", "per_layer"}
+    assert declared["paths"] == ["benchmark"]
+    for c in declared["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert c["file"].startswith("benchmark/") and NAME.match(c["name"])
-        assert json.loads((ROOT / c["file"]).read_text())["reduced"] == (
+        assert json.loads((root / c["file"]).read_text())["reduced"] == (
             c["reduced"])
     layers = {}
-    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+    for m in declared["end_to_end"] + declared["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
         assert m["better"] in ("lower", "higher")
         if "layer" in m:
-            assert (ROOT / "benchmark" / "metrics" / f"{m['name']}.py").exists()
+            assert (root / "benchmark" / "metrics" / f"{m['name']}.py").exists()
             layers.setdefault(m["layer"], set()).add(m["name"])
-    for m in BENCH["end_to_end"]:
+    for m in declared["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
-    names = [w["name"] for w in BENCH["workloads"]]
-    for w in BENCH["workloads"]:
+    names = [w["name"] for w in declared["workloads"]]
+    for w in declared["workloads"]:
         assert w["chips"] == 1 and len(w["why"]) <= 200
-        assert (ROOT / "benchmark" / "traffic" / f"{w['traffic']}.json").exists()
-        assert (ROOT / "benchmark" / "limits" / f"{w['name']}.json").exists()
-        reports = [m for m in BENCH["end_to_end"]
+        assert (root / "benchmark" / "traffic" / f"{w['traffic']}.json").exists()
+        assert (root / "benchmark" / "limits" / f"{w['name']}.json").exists()
+        reports = [m for m in declared["end_to_end"]
                    if w["name"] in m.get("workloads", names)]
         assert "setup_s" in {m["name"] for m in reports} and len(reports) >= 2
-    for m in BENCH["per_layer"]:
-        assert m["moves"] in {e["name"] for e in BENCH["end_to_end"]}
+    for m in declared["per_layer"]:
+        assert m["moves"] in {e["name"] for e in declared["end_to_end"]}
         for cell in m["workloads"]:
             assert cell in names
-            moved = next(e for e in BENCH["end_to_end"]
+            moved = next(e for e in declared["end_to_end"]
                          if e["name"] == m["moves"])
             assert cell in moved.get("workloads", names)
+
+
+def test_benchmark_json_has_the_contract_form():
+    contract_form()
