@@ -37,7 +37,19 @@ except:
     K must divide N (else ValueError). Checkpoints are the same `.pt` at
     any K;
   * `--gpus_to_use` and `--use_data_parallel` are accepted and ignored, as
-    in the JAX package.
+    in the JAX package;
+  * `--arch biggan-deep-256` trains BigGAN-deep at 256x256 (config.py::
+    BigGANDeepConfig, train/biggan_deep.py) instead of the Semantic Pyramid
+    GAN, from a class-folder image tree (`--image_folder`, holding
+    `train/<class>/*` and `val/<class>/*`, read by data/image_folder.py:
+    [0, 1] pixels mapped to [-1, 1], integer labels in sorted class order).
+    `--batch_size` is the rows of one D update, so a loader batch holds
+    `num_d_steps` times as many; `--channel_factor` divides ch (128); the
+    learning rates are the config's (`--lr` is the SP-GAN's). It trains on
+    one process: `--multihost`, `--fsdp` and the perf modes raise:
+
+        python -m semantic_pyramid_for_image_generation_torch.cli.main \
+            --arch biggan-deep-256 --image_folder imagenet --train --test
 """
 
 from __future__ import annotations
@@ -45,6 +57,9 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+
+ARCHS = ("semantic-pyramid", "biggan-deep-256")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -129,11 +144,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard params + Adam moments over this many ranks "
                         "(a (data, fsdp) mesh; needs --multihost and must "
                         "divide the ranks)")
+    # --- the models the port trains ---
+    p.add_argument("--arch", type=str, default="semantic-pyramid",
+                   choices=ARCHS,
+                   help="the Semantic Pyramid GAN on Places365, or "
+                        "BigGAN-deep 256x256 on --image_folder")
+    p.add_argument("--image_folder", type=str, default=None,
+                   help="biggan-deep-256: the root of train/<class>/* and "
+                        "val/<class>/* images")
     return p
 
 
 def check_supported(args) -> None:
     """Raise for flag values the port cannot run."""
+    if args.arch == "biggan-deep-256":
+        refused = [flag for flag, on in (
+            ("--multihost", args.multihost), ("--fsdp", args.fsdp > 1),
+            ("--fused_d", args.fused_d), ("--remat_vgg", args.remat_vgg),
+            ("--remat_blocks", args.remat_blocks)) if on]
+        if refused:
+            raise ValueError(f"--arch biggan-deep-256 trains on one process "
+                             f"without the SP-GAN's perf modes: "
+                             f"{', '.join(refused)}")
+        if not args.image_folder:
+            raise ValueError("--arch biggan-deep-256 reads its images from "
+                             "--image_folder (train/<class>/*, "
+                             "val/<class>/*)")
     if args.fsdp > 1 and not args.multihost:
         raise ValueError(f"--fsdp {args.fsdp} shards the state over the "
                          "ranks of a --multihost launch (torchrun "
@@ -163,10 +199,89 @@ def config_from_args(args):
         remat_blocks=args.remat_blocks)
 
 
+class ClassFolderBatches:
+    """An ImageFolderLoader's (images in [0, 1], labels) batches as the
+    BigGAN-deep step takes them: {"images": 2 x - 1, "labels": int64}."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __iter__(self):
+        import numpy as np
+
+        for images, labels in self.loader:
+            yield {"images": images * 2.0 - 1.0,
+                   "labels": labels.astype(np.int64)}
+
+
+def build_biggan_deep_trainer(args):
+    """`build_trainer` for `--arch biggan-deep-256`."""
+    from semantic_pyramid_for_image_generation_torch.config import (
+        BigGANDeepConfig,
+    )
+    from semantic_pyramid_for_image_generation_torch.data.image_folder import (
+        ImageFolder,
+        ImageFolderLoader,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.checkpoint import (
+        restore_checkpoint,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.loop import Trainer
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        param_count,
+    )
+    from semantic_pyramid_for_image_generation_torch.utils.device import (
+        resolve_device,
+    )
+    from semantic_pyramid_for_image_generation_torch.utils.pt_interop import (
+        load_torch_file,
+    )
+
+    device = resolve_device(args.device)
+    config = BigGANDeepConfig(ch=int(128 // args.channel_factor),
+                              compute_dtype=args.dtype)
+    train = ImageFolder(os.path.join(args.image_folder, "train"),
+                        config.resolution, normalize=False)
+    val = ImageFolder(os.path.join(args.image_folder, "val"),
+                      config.resolution, normalize=False)
+    val.samples = val.samples[:args.fid_images]
+    classes = max(len(train.class_to_idx), len(val.class_to_idx))
+    if classes > config.num_classes:
+        raise ValueError(f"{args.image_folder} holds {classes} classes; "
+                         f"BigGAN-deep's embedding has {config.num_classes}")
+    loader = lambda ds, rows, shuffle: ClassFolderBatches(  # noqa: E731
+        ImageFolderLoader(ds, batch_size=rows, shuffle=shuffle,
+                          random_flip=False, drop_last=shuffle,
+                          num_workers=args.num_workers, seed=args.seed))
+    inception = None
+    if args.load_inception and os.path.exists(args.load_inception):
+        inception = load_torch_file(args.load_inception)
+    trainer = Trainer(
+        config, loader(train, args.batch_size * config.num_d_steps, True),
+        loader(val, 2 * args.batch_size, False), seed=args.seed,
+        save_data_path=args.save_data_path, device=device,
+        tensorboard=args.tensorboard, inception_state_dict=inception,
+        allow_random_fid=args.allow_random_fid,
+        fid_device_stats=args.fid_device_stats)
+    if args.load_checkpoint:
+        restore_checkpoint(args.load_checkpoint, trainer.state)
+        print(f"Restored checkpoint {args.load_checkpoint} "
+              f"(step {trainer.state.step})")
+    if args.auto_resume:
+        trainer.auto_resume(args.auto_resume)
+    print("Number of generator parameters",
+          param_count(trainer.state.generator))
+    print("Number of discriminator parameters",
+          param_count(trainer.state.discriminator))
+    return trainer
+
+
 def build_trainer(args):
     """Flags -> a fully wired Trainer (loaders, weight files, checkpoint
     restore): everything main() does before train() / validate()."""
     check_supported(args)
+    if args.arch == "biggan-deep-256":
+        return build_biggan_deep_trainer(args)
     from semantic_pyramid_for_image_generation_torch.data.places365 import (
         Places365,
         Places365Loader,

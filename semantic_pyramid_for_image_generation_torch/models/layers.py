@@ -51,6 +51,7 @@ from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
 )
 
 LEAKY_SLOPE = 0.2
+SN_EPS = 1e-12  # torch's spectral norm's
 
 
 def lecun_normal_(weight: torch.Tensor,
@@ -86,10 +87,15 @@ class _SpectralNormLayer(nn.Module):
     A serving program (serving/export.py) sets the non-persistent buffer
     `weight_sigma` instead, through `torch.func.functional_call`: in eval
     mode the layer then divides W by that shipped sigma, uncached, so a
-    traced program reads both from its inputs."""
+    traced program reads both from its inputs.
 
-    def __init__(self, weight_shape, bias: bool):
+    `eps` is the power iteration's floor on a vector's norm (torch's
+    `F.normalize` eps): 1e-12 as torch's spectral norm, BigGAN's SN_eps
+    where a model sets it."""
+
+    def __init__(self, weight_shape, bias: bool, eps: float = SN_EPS):
         super().__init__()
+        self.eps = eps
         rows, cols = weight_shape[0], math.prod(weight_shape[1:])
         self.weight_orig = nn.Parameter(torch.empty(weight_shape))
         self.register_parameter(
@@ -126,7 +132,7 @@ class _SpectralNormLayer(nn.Module):
                 return self.weight_orig / sigma
             sigma, u, v = spectral_norm_weight(
                 weight_matrix(self.weight_orig), self.weight_u,
-                self.weight_v, update=self.spectral_update)
+                self.weight_v, update=self.spectral_update, eps=self.eps)
             if guard is not None:
                 guard.vectors[self] = (u, v)
             self.weight_u, self.weight_v = u, v
@@ -223,9 +229,10 @@ class SNConv2d(_SpectralNormLayer):
     """Spectrally-normalized 2D convolution (stride 1)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, padding: int = 1, bias: bool = True):
+                 kernel_size: int = 3, padding: int = 1, bias: bool = True,
+                 eps: float = SN_EPS):
         super().__init__((out_channels, in_channels, kernel_size, kernel_size),
-                         bias)
+                         bias, eps)
         self.padding = padding
 
     def forward(self, x: torch.Tensor, pool: bool = False) -> torch.Tensor:
@@ -242,8 +249,9 @@ class SNConv2d(_SpectralNormLayer):
 class SNLinear(_SpectralNormLayer):
     """Spectrally-normalized linear layer; iterates on the (out, in) matrix."""
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = True):
-        super().__init__((out_features, in_features), bias)
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 eps: float = SN_EPS):
+        super().__init__((out_features, in_features), bias, eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.normalized_weight().to(x.dtype),
@@ -256,8 +264,9 @@ class SNEmbedding(_SpectralNormLayer):
     (num_embeddings, features) table; the row select is exact, as JAX's
     one-hot matmul is."""
 
-    def __init__(self, num_embeddings: int, features: int):
-        super().__init__((num_embeddings, features), bias=False)
+    def __init__(self, num_embeddings: int, features: int,
+                 eps: float = SN_EPS):
+        super().__init__((num_embeddings, features), bias=False, eps=eps)
 
     @torch.no_grad()
     def initialize(self, rng: Optional[torch.Generator] = None) -> None:
@@ -374,28 +383,50 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 
 class SelfAttention(nn.Module):
-    """SAGAN self-attention with 2x max-pooled keys/values (Kernel 2) and a
-    learned gamma initialized to 1.0; the core runs Kernel 1."""
+    """SAGAN self-attention with 2x max-pooled keys/values (Kernel 2); the
+    core runs Kernel 1.
 
-    def __init__(self, channels: int):
+    The defaults are the Semantic Pyramid GAN's: x is pooled, then the key
+    and value convolutions project it (`k = key(max_pool(x))`), every
+    convolution has a bias, and gamma starts at 1.0. BigGAN's form
+    (`layers.Attention`) is `project_then_pool=True, bias=False,
+    gamma_init=0.0`: the key and value convolutions project x and their
+    outputs are pooled (`phi = max_pool(conv(x))`), with no biases. The two
+    compute different functions. The keys are the same in both
+    (`query_convolution`, `key_convolution`, `value_convolution`,
+    `attention_convolution`, `gamma`: BigGAN's theta, phi, g, o and gamma);
+    gamma is a (1,) tensor where BigGAN's is 0-d."""
+
+    def __init__(self, channels: int, project_then_pool: bool = False,
+                 bias: bool = True, gamma_init: float = 1.0,
+                 eps: float = SN_EPS):
         super().__init__()
         c = channels
-        self.query_convolution = SNConv2d(c, c // 8, 1, padding=0)
-        self.key_convolution = SNConv2d(c, c // 8, 1, padding=0)
-        self.value_convolution = SNConv2d(c, c // 2, 1, padding=0)
-        self.attention_convolution = SNConv2d(c // 2, c, 1, padding=0)
-        self.gamma = nn.Parameter(torch.ones(1))
+        conv = lambda cin, cout: SNConv2d(  # noqa: E731
+            cin, cout, 1, padding=0, bias=bias, eps=eps)
+        self.query_convolution = conv(c, c // 8)
+        self.key_convolution = conv(c, c // 8)
+        self.value_convolution = conv(c, c // 2)
+        self.attention_convolution = conv(c // 2, c)
+        self.project_then_pool = project_then_pool
+        self.gamma_init = gamma_init
+        self.gamma = nn.Parameter(torch.full((1,), gamma_init))
 
     @torch.no_grad()
     def initialize(self, rng: Optional[torch.Generator] = None) -> None:
-        self.gamma.fill_(1.0)
+        self.gamma.fill_(self.gamma_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        pooled = max_pool_2d(x)
-        q = _rows(self.query_convolution(x))
-        k = _rows(self.key_convolution(pooled))
-        v = _rows(self.value_convolution(pooled))
+        if self.project_then_pool:
+            q = _rows(self.query_convolution(x))
+            k = _rows(max_pool_2d(self.key_convolution(x)))
+            v = _rows(max_pool_2d(self.value_convolution(x)))
+        else:
+            pooled = max_pool_2d(x)
+            q = _rows(self.query_convolution(x))
+            k = _rows(self.key_convolution(pooled))
+            v = _rows(self.value_convolution(pooled))
         attn = PooledKVAttentionFunction.apply(q, k, v)  # (B, H*W, C/2)
         attn = attn.reshape(b, h, w, c // 2).permute(0, 3, 1, 2)
         out = self.attention_convolution(attn)

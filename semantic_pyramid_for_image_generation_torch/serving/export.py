@@ -199,6 +199,11 @@ class _Program(nn.Module):
 
 
 def _check_exportable(generator: Generator, vgg: VGG16) -> None:
+    if not isinstance(generator.config, PyramidGANConfig):
+        raise ValueError(
+            f"export serves the Semantic Pyramid GAN's generator, not a "
+            f"{type(generator.config).__name__}'s: BigGAN-deep has no "
+            "serving path")
     if generator.config != vgg.config:
         raise ValueError("generator and VGG16 configs differ")
     if generator.training or vgg.training:

@@ -7,6 +7,10 @@ dicts, plus the step. The JAX package reads these files with
 `--load_checkpoint x.pt`, and the port reads the reference's and the JAX
 package's `.pt` files (`restore_checkpoint`). The frozen VGG is not saved:
 it comes from its own file (`--load_pretrained_vgg16`) or the seed.
+
+A BigGAN-deep state (train/biggan_deep.py) is saved under the same names in
+the port's own layout: G, D and G_ema state dicts, both Adam state dicts as
+torch writes them, and the step (`biggan_deep.checkpoint_dict`).
 """
 
 from __future__ import annotations
@@ -23,12 +27,14 @@ from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
     load_state_dict_,
     tree_digest,
 )
+from semantic_pyramid_for_image_generation_torch.train import biggan_deep
 from semantic_pyramid_for_image_generation_torch.train.state import (
     TrainState,
     import_adam_moments,
 )
 from semantic_pyramid_for_image_generation_torch.utils.pt_interop import (
     load_reference_gan_checkpoint,
+    load_torch_file,
     reference_gan_checkpoint,
 )
 
@@ -46,7 +52,9 @@ def save_checkpoint(directory: str, state: TrainState,
     step = int(state.step) if step is None else step
     if not (write or is_sharded(state.generator)):
         return None
-    checkpoint = reference_gan_checkpoint(state)
+    checkpoint = (biggan_deep.checkpoint_dict(state)
+                  if isinstance(state, biggan_deep.BigGANDeepState)
+                  else reference_gan_checkpoint(state))
     if not write:
         return None
     os.makedirs(directory, exist_ok=True)
@@ -70,6 +78,8 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
             "cli/convert_checkpoint.py orbax-to-pt (orbax is a JAX "
             "library; the port's cli/convert_checkpoint.py has no orbax "
             "modes)")
+    if isinstance(state, biggan_deep.BigGANDeepState):
+        return biggan_deep.load_checkpoint_dict(state, load_torch_file(path))
     ckpt = load_reference_gan_checkpoint(path)
     if is_sharded(state.generator):
         check_replicated(file=tree_digest(ckpt))

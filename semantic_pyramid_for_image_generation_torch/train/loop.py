@@ -28,6 +28,13 @@ sharded (parallel/mesh.py::shard_state): every generate is then a
 collective, and a rank that gets no row of a ragged validation batch
 generates a padded row it does not count (data/places365.py::shard_of);
 each checkpoint is gathered whole on every rank and written by rank 0.
+
+A Trainer built on a `BigGANDeepConfig` trains BigGAN-deep
+(train/biggan_deep.py) with the same cadence, metric flush and
+checkpoints: its state adds G's EMA, which `validate()` (the FID of G_ema's
+samples for the validation labels) and `inference()` (a 7x7 grid of G_ema's
+samples) sample. It trains on one process; `fsdp`, the perf modes and the
+SP-GAN-only methods (`generate`, `import_adam_moments`) refuse it.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from semantic_pyramid_for_image_generation_torch.config import (
     DEFAULT_LR,
     DEFAULT_W_DIV,
     DEFAULT_W_REC,
+    BigGANDeepConfig,
     PyramidGANConfig,
 )
 from semantic_pyramid_for_image_generation_torch.data.masks import MaskSchedule
@@ -62,6 +70,7 @@ from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
     shard_state,
     world_size,
 )
+from semantic_pyramid_for_image_generation_torch.train import biggan_deep
 from semantic_pyramid_for_image_generation_torch.train.checkpoint import (
     latest_checkpoint,
     restore_checkpoint,
@@ -102,7 +111,7 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
 class Trainer:
     def __init__(
         self,
-        config: PyramidGANConfig,
+        config: PyramidGANConfig | BigGANDeepConfig,
         training_dataset: Iterable[Dict[str, Any]],
         validation_dataset: Optional[Iterable[Dict[str, Any]]] = None,
         lr: float = DEFAULT_LR,
@@ -131,24 +140,43 @@ class Trainer:
         the ranks (parallel/mesh.py::shard_state) once rank 0's is
         broadcast; it raises ValueError unless it divides the ranks. Pass
         an unsharded `state` whose optimizers hold nothing yet, and restore
-        checkpoints after."""
+        checkpoints after. On a `BigGANDeepConfig` the state is a
+        `train/biggan_deep.py::BigGANDeepState` (random from `seed` by
+        default), trained at the config's learning rates (`lr`, `w_rec`
+        and `w_div` are the SP-GAN's); `fsdp` > 1, `remat_vgg`,
+        `fused_discriminator` and more than one rank raise ValueError."""
         self.device = resolve_device(device)
         self.config = config
         self.training_dataset = training_dataset
         self.validation_dataset = validation_dataset
         self.compat_inference_indices = compat_inference_indices
         self.write_grids = write_grids
-        self.state = state if state is not None else init_train_state(
-            config, self.device, lr=lr, seed=seed)
+        self.biggan = isinstance(config, BigGANDeepConfig)
+        if self.biggan:
+            refused = [name for name, on in (
+                ("fsdp", fsdp > 1), ("remat_vgg", remat_vgg),
+                ("fused_discriminator", fused_discriminator),
+                ("data parallelism", world_size() > 1)) if on]
+            if refused:
+                raise ValueError(f"BigGAN-deep trains on one process without "
+                                 f"the SP-GAN's perf modes; refused: "
+                                 f"{', '.join(refused)}")
+            self.state = state if state is not None else (
+                biggan_deep.init_state(config, self.device, seed))
+            self._batch_to_device = biggan_deep.batch_to_device
+        else:
+            self.state = state if state is not None else init_train_state(
+                config, self.device, lr=lr, seed=seed)
+            self._batch_to_device = batch_to_device
         broadcast_state(self.state)
         self.mesh = None
         if fsdp > 1:
             self.mesh = make_mesh(fsdp, self.device.type)
             shard_state(self.state, self.mesh)
         self.is_lead = rank() == 0
-        self.step_fn = make_train_step(
-            w_rec=w_rec, w_div=w_div, remat_vgg=remat_vgg,
-            fused_discriminator=fused_discriminator)
+        self.step_fn = biggan_deep.make_train_step() if self.biggan else (
+            make_train_step(w_rec=w_rec, w_div=w_div, remat_vgg=remat_vgg,
+                            fused_discriminator=fused_discriminator))
         self.fid_evaluator = FIDEvaluator(
             inception_state_dict, self.device, allow_random=allow_random_fid,
             device_statistics=fid_device_stats)
@@ -167,8 +195,10 @@ class Trainer:
             "generator_params": str(param_count(self.state.generator)),
             "discriminator_params": str(param_count(self.state.discriminator)),
             "config": str(config),
-            "lr": str(lr), "w_rec": str(w_rec), "w_div": str(w_div),
         })
+        if not self.biggan:  # BigGAN-deep's rates are in its config
+            self.logger.hyperparameter.update({
+                "lr": str(lr), "w_rec": str(w_rec), "w_div": str(w_div)})
 
     # ------------------------------------------------------------------
     def _flush_metrics(self, pending) -> Optional[Dict[str, float]]:
@@ -195,7 +225,7 @@ class Trainer:
         device."""
         rng = step_generator(self.seed + 1, int(self.state.step), self.device)
         self.state, metrics = self.step_fn(
-            self.state, batch_to_device(batch, self.device), rng)
+            self.state, self._batch_to_device(batch, self.device), rng)
         return metrics
 
     def train(
@@ -238,14 +268,7 @@ class Trainer:
                 if len(pending) >= max(1, log_every):
                     host = self._flush_metrics(pending)
                 if bar is not None and host is not None:
-                    bar.set_description(
-                        "FID={:.4f}, Loss Div={:.4f}, Loss Rec={:.4f}, "
-                        "Loss G={:.4f}, Loss D={:.4f}".format(
-                            fid, host["loss_generator_diversity"],
-                            host["loss_generator_semantic_reconstruction"],
-                            host["loss_generator"],
-                            host["loss_discriminator_real"]
-                            + host["loss_discriminator_fake"]))
+                    bar.set_description(self._progress(fid, host))
                 if (self.validation_dataset is not None
                         and self.samples_seen >= next_validation):
                     next_validation += validate_after_n_iterations
@@ -264,6 +287,24 @@ class Trainer:
         if bar is not None:
             bar.close()
 
+    def _refuse_biggan(self, what: str) -> None:
+        if self.biggan:
+            raise ValueError(f"Trainer.{what} is the SP-GAN's; BigGAN-deep "
+                             "samples G_ema through validate() and "
+                             "inference()")
+
+    def _progress(self, fid: float, host: Dict[str, float]) -> str:
+        loss_d = host["loss_discriminator_real"] + host[
+            "loss_discriminator_fake"]
+        if self.biggan:
+            return "FID={:.4f}, Loss G={:.4f}, Loss D={:.4f}".format(
+                fid, host["loss_generator"], loss_d)
+        return ("FID={:.4f}, Loss Div={:.4f}, Loss Rec={:.4f}, "
+                "Loss G={:.4f}, Loss D={:.4f}".format(
+                    fid, host["loss_generator_diversity"],
+                    host["loss_generator_semantic_reconstruction"],
+                    host["loss_generator"], loss_d))
+
     def _save_metrics(self) -> None:
         if self.is_lead:
             self.logger.save_metrics(self.paths["metrics"])
@@ -281,6 +322,7 @@ class Trainer:
         """Adopt the Adam moments of a loaded reference checkpoint
         (utils/pt_interop.py::load_reference_gan_checkpoint) without its
         weights, mapped by parameter key."""
+        self._refuse_biggan("import_adam_moments")
         for net in ("generator", "discriminator"):
             optimizer = getattr(self.state, f"{net[0]}_optimizer")
             import_adam_moments(optimizer, getattr(self.state, net),
@@ -336,6 +378,7 @@ class Trainer:
                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Eval-mode fakes (B, H, W, 3) for a device batch; the latents are
         drawn from the Trainer's eval generator unless given."""
+        self._refuse_biggan("generate")
         if noise is None:
             noise = self._latents(self.rng, batch["images"].shape[0])
         with self._eval_mode():
@@ -343,7 +386,8 @@ class Trainer:
                 batch["images"], batch["masks"], batch["labels"], noise)
 
     def validate(self) -> float:
-        """FID of fresh fakes against the validation set, batch by batch.
+        """FID of fresh fakes against the validation set, batch by batch
+        (of G_ema's samples for the batches' labels on BigGAN-deep).
         One draw from the eval generator seeds this validation's latents (as
         the JAX package splits its key once per validation), so every rank
         draws the same latents whatever rows it holds, and a rank that gets
@@ -352,6 +396,8 @@ class Trainer:
         seed = torch.randint(2 ** 62, (1,), generator=self.rng,
                              device=self.device)
         rng = torch.Generator(self.device).manual_seed(int(seed))
+        if self.biggan:
+            return self._validate_biggan(rng)
 
         def batches():
             for b in self.validation_dataset:
@@ -362,6 +408,41 @@ class Trainer:
 
         return self.fid_evaluator.fid(
             batches(), lambda batch: self.generate(batch, batch["noise"]))
+
+    def _validate_biggan(self, rng: torch.Generator) -> float:
+        generate = biggan_deep.make_generate_fn(self.state.generator_ema)
+
+        def batches():
+            for b in self.validation_dataset:
+                batch = self._batch_to_device(b, self.device)
+                batch["noise"] = torch.randn(
+                    (batch["images"].shape[0], self.config.dim_z),
+                    generator=rng, device=self.device)
+                yield batch
+
+        return self.fid_evaluator.fid(
+            batches(), lambda batch: generate(batch["noise"],
+                                              batch["labels"]))
+
+    def _inference_biggan(self, num_images: int) -> Optional[str]:
+        """`num_images` rows of G_ema's samples, a row per class of the
+        first validation batch's first labels, a column per latent drawn
+        from the eval generator."""
+        if self._inference_batch is None:
+            self._inference_batch = next(iter(self.validation_dataset))
+        labels = np.resize(np.asarray(self._inference_batch["labels"]),
+                           num_images)
+        y = torch.as_tensor(np.repeat(labels, num_images)).to(self.device)
+        z = torch.randn((num_images * num_images, self.config.dim_z),
+                        generator=self.rng, device=self.device)
+        fakes = biggan_deep.make_generate_fn(self.state.generator_ema)(z, y)
+        self.last_grid = fakes.float().cpu().numpy()
+        if not (self.write_grids and self.is_lead):
+            return None
+        path = os.path.join(self.paths["plots"],
+                            f"predictions_{self.samples_seen}.png")
+        save_inference_grid(self.last_grid, path, nrow=num_images)
+        return path
 
     def _draw_inference_samples(self, num_images: int):
         """Seeded random draw of `num_images` distinct validation samples,
@@ -398,7 +479,8 @@ class Trainer:
                 np.asarray(batch["labels"][:num_images]))
 
     def inference(self, num_images: int = 7) -> Optional[str]:
-        """The 7x7 mask-level sweep: rows are validation images, columns pin
+        """The 7x7 mask-level sweep (on BigGAN-deep, `_inference_biggan`'s
+        grid of G_ema's samples): rows are validation images, columns pin
         the conditioning at each pyramid level. All levels ride ONE generate
         of levels * num_images rows (images and labels tiled level-major),
         with the latents drawn level by level, as seven generates of
@@ -407,6 +489,8 @@ class Trainer:
         but rank 0, which alone writes it)."""
         if self.validation_dataset is None:
             return None
+        if self.biggan:
+            return self._inference_biggan(num_images)
         images, labels = self._draw_inference_samples(num_images)
         if images.shape[0] < num_images:
             reps = -(-num_images // images.shape[0])

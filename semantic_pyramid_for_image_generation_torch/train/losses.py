@@ -4,7 +4,9 @@ Counterpart of the JAX package's train/losses.py:
   * masked multi-level semantic reconstruction (L1 on 2x-max-pooled
     features; the conv levels pool through Kernels 2 and 4 on CUDA),
   * mini-batch diversity (latent L1 over image L1),
-  * LSGAN generator and discriminator least-squares objectives.
+  * LSGAN generator and discriminator least-squares objectives;
+and BigGAN's hinge objectives (BigGAN-PyTorch's `losses.loss_hinge_dis` /
+`loss_hinge_gen`), which the JAX package does not have.
 
 Every loss is a plain mean over the global batch, as the JAX package reduces
 them. Over several ranks (parallel/mesh.py) each rank returns its share: its
@@ -94,3 +96,19 @@ def lsgan_discriminator_loss(prediction_real: torch.Tensor,
         torch.square(prediction_real.float() - 1.0))
     loss_fake = 0.5 * _mean_share(torch.square(prediction_fake.float()))
     return loss_real, loss_fake
+
+
+def hinge_discriminator_loss(prediction_fake: torch.Tensor,
+                             prediction_real: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean(relu(1 - D(real))), mean(relu(1 + D(fake)))): the real and the
+    fake part, summed by the caller; fake first in the arguments, as
+    BigGAN-PyTorch's `loss_hinge_dis(dis_fake, dis_real)` takes them."""
+    loss_real = _mean_share(torch.relu(1.0 - prediction_real.float()))
+    loss_fake = _mean_share(torch.relu(1.0 + prediction_fake.float()))
+    return loss_real, loss_fake
+
+
+def hinge_generator_loss(prediction_fake: torch.Tensor) -> torch.Tensor:
+    """-mean(D(fake))."""
+    return -_mean_share(prediction_fake.float())

@@ -17,7 +17,9 @@ The spans: `sp:loop.rng`, `sp:loop.to_device` and `sp:loop.fetch_metrics`
 around the loop's work between steps; `sp:step` around a whole step, with
 its phases inside it (`sp:step.inputs`, `sp:step.pyramid.forward`,
 `sp:step.{d,g}_phase.{forward,backward,adam}` of the GAN step,
-`sp:step.{forward,backward,adam}` of the fine-tune step).
+`sp:step.{forward,backward,adam}` of the fine-tune step; BigGAN-deep's
+step runs each D update under the GAN step's `sp:step.d_phase.*` names and
+its EMA under `sp:step.ema`).
 """
 
 from __future__ import annotations

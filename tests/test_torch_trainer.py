@@ -15,7 +15,7 @@
     looped 7-row generates with the same latents (1e-5 absolute in fp32:
     the same per-sample arithmetic at another batch size).
   * CLI: the parser's dests and defaults are the JAX package's but for
-    `--device`; `--fsdp` raises without `--multihost` and when it does not
+    `--device` and the port's `--arch` / `--image_folder`; `--fsdp` raises without `--multihost` and when it does not
     divide the ranks (`--multihost` runs: tests/test_torch_cli.py, with
     `--fsdp`: tests/test_torch_fsdp_cli.py); `main` trains,
     validates, writes metrics, `checkpoint_000.pt` and a grid PNG on a mini
@@ -223,6 +223,9 @@ def _defaults(parser):
 def test_parser_matches_jax_but_device():
     got, want = _defaults(cli.build_parser()), _defaults(jax_build_parser())
     assert got.pop("device") == "cuda" and want.pop("device") == "tpu"
+    # the port's choice of model, which the JAX package does not have
+    assert got.pop("arch") == "semantic-pyramid"
+    assert got.pop("image_folder") is None
     assert got == want
 
 
