@@ -35,7 +35,11 @@ Phases; any failure raises and exits non-zero, before the result lines:
     bf16 and fp32, 64 and 32 in bf16, 8 in fp32), the loss's fp32 pools
     of the features and masks included, and Kernels 1, 2 and 4 at phase
     11's fused D pass over real ++ fake (2 x 64 rows in bf16, 2 x 8 in
-    fp32).
+    fp32). Then the batch norms' Kernels 6-9 (bf16 only) at BN_SITES,
+    BigGAN-deep's two largest at its cell's 64 rows and the SP-GAN's two
+    largest at batch 16, once more with x off 16-byte alignment (their
+    element-wise form): each against its plain version in the card tests'
+    bands, then kernel, bound, plain and `torch.batch_norm` ms.
  4. End-to-end references: a tiny-width model on the card (kernels) against
     the same model on the CPU (plain versions): generate in fp32 and bf16,
     and two fp32 train steps (metrics, parameters, u/v, BN statistics).
@@ -50,7 +54,10 @@ Phases; any failure raises and exits non-zero, before the result lines:
     fp32: 1 warm-up and 5 timed steps each (ms/step, images/s, peak memory),
     then one bf16 step at batch 64 (peak memory). Launch counters are reset
     before it; each step must move them by attention 5, upsample 22, max
-    pool 30, max-pool backward 14, upsample backward 11.
+    pool 30, max-pool backward 14, upsample backward 11, and in bf16 the
+    batch norms' statistics 22, apply 22, backward sums 11, backward dx 11
+    (G's 11 training batch norms in its two forwards and one backward;
+    none in fp32 or in any eval generate).
  7. The Trainer path: `Trainer.train` at full width in bf16 (random init
     from the seed, u/v advanced as in phase 6) on 4 in-memory synthetic
     batches of 16, validating every 32 samples on 2 batches of 32: an FID
@@ -291,12 +298,21 @@ G_PARAMETERS = 29_967_047  # the Generator at full width
 D_PARAMETERS = 16_820_994  # the Discriminator at full width
 LR = 1e-5  # the reference's learning rate
 TRAIN_STEPS = 6  # 1 warm-up + 5 timed
-TRAIN_LAUNCHES = {  # per train step (chip_smoke phase 6)
+BATCH_NORM_KERNELS = ("batch_norm_stats", "batch_norm_apply",
+                      "batch_norm_backward_sums", "batch_norm_backward_dx")
+NO_BATCH_NORMS = dict.fromkeys(BATCH_NORM_KERNELS, 0)
+TRAIN_LAUNCHES = {  # per bf16 train step (chip_smoke phase 6); G's 11
+    # training-mode batch norms run Kernels 6 and 7 in its two forwards (D
+    # phase, G phase) and Kernels 8 and 9 in its one backward
     "pooled_kv_attention": 5, "upsample_2x": 22, "max_pool_2x2": 30,
-    "max_pool_2x2_backward": 14, "upsample_2x_backward": 11}
+    "max_pool_2x2_backward": 14, "upsample_2x_backward": 11,
+    "batch_norm_stats": 22, "batch_norm_apply": 22,
+    "batch_norm_backward_sums": 11, "batch_norm_backward_dx": 11}
+# per float32 train step: its batch norms keep the literal order
+FP32_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, **NO_BATCH_NORMS)
 GENERATE_LAUNCHES = {  # per eval generate (VGG pyramid, then G)
     "pooled_kv_attention": 1, "upsample_2x": 11, "max_pool_2x2": 6,
-    "max_pool_2x2_backward": 0, "upsample_2x_backward": 0}
+    "max_pool_2x2_backward": 0, "upsample_2x_backward": 0, **NO_BATCH_NORMS}
 # the train step's perf modes (phase 11), their config fields, make_train_step
 # flags and launches per step: tests/torch_parallel_rank.py's PERF_MODES and
 # PERF_MODE_LAUNCHES (`parallel_helpers()`), which the CPU tests use
@@ -709,6 +725,129 @@ def hold_sites(specs: dict, name: str, sites, what: str) -> None:
           f"{worst:.3g} ok", flush=True)
 
 
+# Kernels 6-9 at (shape, per-row tables, slope, x's offset in elements):
+# BigGAN-deep's largest batch norm (the output BN, per-channel tables, ReLU)
+# and its largest conditional one, at its cell's 64 rows; the SP-GAN's
+# largest conditional norm and its final BN (LeakyReLU 0.2) at the smoke's
+# batch, then that conditional norm with x one element into its storage,
+# which takes the kernels' element-wise (VEC = 1) form
+BN_SITES = (((64, 128, 256, 256), False, 0.0, 0),
+            ((64, 64, 256, 256), True, 0.0, 0),
+            ((BATCH, 64, 256, 256), True, 0.2, 0),
+            ((BATCH, 64, 256, 256), False, 0.2, 0),
+            ((BATCH, 64, 256, 256), True, 0.2, 1))
+
+
+def time_batch_norm_kernels(device) -> dict:
+    """Kernels 6-9 at BN_SITES: each against its plain version (the card
+    tests' bands: one bf16 rounding for Kernels 7 and 9, 1e-5 of the sum of
+    the terms' magnitudes for the sums of 6 and 8), then its ms, its bound
+    (bytes at HBM_BYTES_PER_S), its plain version's ms and a library
+    yardstick's, `torch.batch_norm` in training mode forward (Kernels 6, 7)
+    and its backward (8, 9), timed here only: the port never calls it. The
+    plain versions run over 3 calls, the rest over 7 windows of 5. Returns
+    an entry per kernel, as `check_kernels` does, with a row per site."""
+    from semantic_pyramid_for_image_generation_torch.ops.cuda import (
+        batch_norm as bn,
+    )
+
+    g = torch.Generator(device).manual_seed(SEED)
+    entries = {name: {"name": name, "route": "cuda",
+                      "source": "csrc/batch_norm.cu",
+                      "replaces": "none: XLA fuses the JAX package's batch "
+                                  "norms", "dtype": "bfloat16", "sites": []}
+               for name in BATCH_NORM_KERNELS}
+    for shape, per_row, slope, offset in BN_SITES:
+        b, c, h, w = shape
+        segments = b if per_row else 1
+        storage = torch.empty(b * c * h * w + offset, device=device,
+                              dtype=torch.bfloat16)
+        x = storage[offset:].view(b, h, w, c).permute(0, 3, 1, 2)
+        x.copy_(0.5 + 2 * torch.randn(shape, generator=g, device=device))
+        dy = torch.randn(shape, generator=g, device=device).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        scale = 1 + 0.3 * torch.randn(segments, c, generator=g, device=device)
+        shift = 0.5 * torch.randn(segments, c, generator=g, device=device)
+        k = 0.1 * torch.randn(2, c, generator=g, device=device)
+        weight, bias = scale[0].clone(), shift[0].clone()
+        running = [torch.zeros(c, device=device), torch.ones(c, device=device)]
+        _, mean, invstd = torch.native_batch_norm(x, weight, bias, *running,
+                                                  True, 0.1, 1e-5)
+
+        def library_forward():
+            torch.batch_norm(x, weight, bias, *running, True, 0.1, 1e-5, True)
+
+        def library_backward():
+            torch.ops.aten.native_batch_norm_backward(
+                dy, x, weight, *running, mean, invstd, True, 1e-5,
+                [True, True, True])
+
+        table = 2 * segments * c * 4  # scale and shift, float32
+        kernels = {
+            "batch_norm_stats": (lambda: bn.batch_norm_stats(x),
+                                 lambda: bn.batch_norm_stats_plain(x),
+                                 library_forward, nbytes(x) + 2 * c * 4),
+            "batch_norm_apply": (
+                lambda: bn.batch_norm_apply(x, scale, shift, slope),
+                lambda: bn.batch_norm_apply_plain(x, scale, shift, slope),
+                library_forward, 2 * nbytes(x) + table),
+            "batch_norm_backward_sums": (
+                lambda: bn.batch_norm_backward_sums(dy, x, scale, shift,
+                                                    slope),
+                lambda: bn.batch_norm_backward_sums_plain(dy, x, scale, shift,
+                                                          slope),
+                library_backward, nbytes(x, dy) + 2 * table),
+            "batch_norm_backward_dx": (
+                lambda: bn.batch_norm_backward_dx(dy, x, scale, shift, k,
+                                                  slope),
+                lambda: bn.batch_norm_backward_dx_plain(dy, x, scale, shift, k,
+                                                        slope),
+                library_backward, 3 * nbytes(x) + table + nbytes(k)),
+        }
+
+        def magnitudes(name):
+            """The sums' band: the sum of their terms' magnitudes."""
+            if name == "batch_norm_stats":
+                return bn.batch_norm_stats_plain(x.abs())
+            gp = bn._g(dy, x, scale, shift, slope).abs()
+            dims = (2, 3) if per_row else (0, 2, 3)
+            return torch.stack([gp.sum(dim=dims), (gp * x.float().abs()).sum(
+                dim=dims)]).reshape(2, *scale.shape)
+
+        for name, (kernel, plain, library, moved) in kernels.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if got.dtype == torch.bfloat16:
+                err = (got.float() - want.float()).abs()
+                ok = bool((err <= 2.0 ** -7 * want.float().abs() + 1e-5
+                           * want.float().abs().max()).all())
+            else:  # fp32 sums in another order
+                ok = bool(((got - want).abs() <= 1e-5 * magnitudes(name)
+                           ).all())
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at {shape}, offset {offset}")
+            del got, want
+            row = {"shape": list(shape), "per_row_tables": per_row,
+                   "slope": slope, "offset": offset,
+                   "ms": time_ms(kernel, 7, 5),
+                   "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                   "plain_ms": time_ms(plain, 3, 1),
+                   "library_ms": time_ms(library, 7, 5)}
+            entries[name]["sites"].append(row)
+            tables = "per-row" if per_row else "per-channel"
+            form = ", element-wise form" if offset else ""
+            print(f"  {name} bf16 {shape} ({tables} tables, slope {slope}"
+                  f"{form}): kernel {row['ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms (bytes, "
+                  f"{100 * row['bound_ms'] / row['ms']:.0f}%), plain "
+                  f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f}"
+                  " ms", flush=True)
+        del x, dy, storage
+        torch.cuda.empty_cache()
+    return entries
+
+
 def check_kernels(device) -> dict:
     specs = kernel_specs(device)
     results = {}
@@ -1006,9 +1145,8 @@ def drive_main_path(device) -> dict:
                 after = kernels.launch_counts()
                 delta = {k: after[k] - before[k] for k in after}
                 vgg_forwards = 1 + (class_id is None)
-                want = {"pooled_kv_attention": 1, "upsample_2x": 11,
-                        "max_pool_2x2": 5 * vgg_forwards + 1,
-                        "max_pool_2x2_backward": 0, "upsample_2x_backward": 0}
+                want = dict(GENERATE_LAUNCHES,
+                            max_pool_2x2=5 * vgg_forwards + 1)
                 if delta != want:
                     raise AssertionError(f"launches {delta}, expected {want}")
                 fakes = out["fakes"]
@@ -1106,9 +1244,11 @@ def drive_train_path(device):
             times.append((time.perf_counter() - t0) * 1e3)
             after = kernels.launch_counts()
             delta = {k: after[k] - before[k] for k in after}
-            if delta != TRAIN_LAUNCHES:
+            want = (TRAIN_LAUNCHES if dtype == "bfloat16"
+                    else FP32_TRAIN_LAUNCHES)
+            if delta != want:
                 raise AssertionError(f"train step launches {delta}, expected "
-                                     f"{TRAIN_LAUNCHES}")
+                                     f"{want}")
             values = {k: float(v) for k, v in metrics.items()}
             if not all(np.isfinite(v) for v in values.values()):
                 raise AssertionError(f"non-finite losses {values}")
@@ -1412,7 +1552,7 @@ FT_CLI_IMAGES = 320  # training JPEGs per class: 5 batches of 256
 LOADER_WORKERS = 8  # ImageFolderLoader's threads, the CLI's --workers
 FINETUNE_LAUNCHES = {  # per fine-tune step: the 5 VGG pools
     "pooled_kv_attention": 0, "upsample_2x": 0, "max_pool_2x2": 5,
-    "max_pool_2x2_backward": 5, "upsample_2x_backward": 0}
+    "max_pool_2x2_backward": 5, "upsample_2x_backward": 0, **NO_BATCH_NORMS}
 EVAL_LAUNCHES = dict(FINETUNE_LAUNCHES, max_pool_2x2_backward=0)
 
 
@@ -2791,7 +2931,8 @@ def drive_perf_mode_cli(device, card: str) -> None:
             (metrics,) = glob.glob(os.path.join(save, "metrics_*"))
             losses = np.load(os.path.join(metrics, "loss_generator.npy"))
             want_step = 2 * len(summary) + 2
-            for name in ("max_pool_2x2_backward", "upsample_2x_backward"):
+            for name in ("max_pool_2x2_backward", "upsample_2x_backward",
+                         "batch_norm_backward_sums", "batch_norm_backward_dx"):
                 if counts[name] != 2 * launches[mode][name]:
                     raise AssertionError(f"(e) {mode}: {name} launched "
                                          f"{counts[name]} times")
@@ -2897,8 +3038,8 @@ def drive_perf_mode_ranks(device, card: str) -> None:
     per_step = h.step_collective_bytes(nets, DP_FP32_BATCH // DP_WORLD,
                                        DP_WORLD)
     want_bytes = {k: DP_FP32_STEPS * v for k, v in per_step.items()}
-    want_launches = {k: DP_FP32_STEPS * v for k, v in
-                     h.PERF_MODE_LAUNCHES[PM_GLOO_MODE].items()}
+    want_launches = {k: DP_FP32_STEPS * v for k, v in h.float32_launches(
+        h.PERF_MODE_LAUNCHES[PM_GLOO_MODE]).items()}
     limits = {k: max(floor, DP_WITNESS_FACTOR * witness[k])
               for k, floor in DP_LIMITS.items()}
     readings = ranks[0]["readings"]
@@ -3279,7 +3420,8 @@ def drive_fsdp_cli(device, card: str) -> None:
         (first,) = glob.glob(os.path.join(workdir, "a", "models_*",
                                           "checkpoint_000.pt"))
         for c in counts:
-            for name in ("max_pool_2x2_backward", "upsample_2x_backward"):
+            for name in ("max_pool_2x2_backward", "upsample_2x_backward",
+                         "batch_norm_backward_sums", "batch_norm_backward_dx"):
                 if c[name] != 2 * TRAIN_LAUNCHES[name]:
                     raise AssertionError(f"(c) a rank launched {name} "
                                          f"{c[name]} times")
@@ -4011,9 +4153,9 @@ RE_LANES = ("", "--per-step", "--trainer", "--host-pipeline", "--serving",
 RE_ENTRY_TOLERANCE = 1e-4  # (a): phase 4's fp32 end-to-end tolerance
 RE_RANKS = 4  # (b): dryrun_multichip's ranks, sharing the card
 RE_TIMEOUT_S = 300  # the phase's process
-G_FORWARD_LAUNCHES = {  # per Generator forward: its attention and KV pool
+G_FORWARD_LAUNCHES = {  # per eval Generator forward: its attention and KV pool
     "pooled_kv_attention": 1, "upsample_2x": 11, "max_pool_2x2": 1,
-    "max_pool_2x2_backward": 0, "upsample_2x_backward": 0}
+    "max_pool_2x2_backward": 0, "upsample_2x_backward": 0, **NO_BATCH_NORMS}
 
 
 def scaled(launches: dict, n: int) -> dict:
@@ -4129,7 +4271,7 @@ def drive_dryrun(device) -> dict:
     from semantic_pyramid_for_image_generation_torch import graft_entry
 
     result = graft_entry.dryrun_multichip(RE_RANKS, device.type)
-    want = added(TRAIN_LAUNCHES, scaled(GENERATE_LAUNCHES, 4))
+    want = added(FP32_TRAIN_LAUNCHES, scaled(GENERATE_LAUNCHES, 4))
     print(f"  (b) dryrun_multichip({RE_RANKS}): {result['seconds']:.1f} s, "
           f"mesh {result['mesh']}, grid {result['grid_side']}, FID (random "
           f"backbone) {result['fid']:.4g}; rank 0 launches "
@@ -4474,6 +4616,7 @@ def main() -> int:
           "generate and train batches checked)", flush=True)
     memory_ceilings(device)
     kernels = check_kernels(device)
+    kernels.update(time_batch_norm_kernels(device))
 
     print("[4] tiny end-to-end references", flush=True)
     check_tiny_reference(device)
@@ -4482,8 +4625,7 @@ def main() -> int:
     print("[5] serving path: full-width requests, bf16 then fp32", flush=True)
     serving = drive_main_path(device)
     for name, count in serving.items():
-        backward = name.endswith("_backward")
-        if (count == 0) != backward:
+        if (count == 0) != (GENERATE_LAUNCHES[name] == 0):
             raise AssertionError(f"serving launched {name} {count} times")
         kernels[name]["serving_launches"] = count
 
@@ -4576,7 +4718,7 @@ def main() -> int:
     start = time.perf_counter()
     programs = drive_serving_programs(device, card)
     for name, count in programs.items():
-        if (count == 0) != name.endswith("_backward"):
+        if (count == 0) != (GENERATE_LAUNCHES[name] == 0):
             raise AssertionError(f"the programs launched {name} {count} "
                                  "times")
         kernels[name]["program_launches"] = count

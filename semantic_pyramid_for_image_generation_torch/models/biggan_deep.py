@@ -52,7 +52,10 @@ from semantic_pyramid_for_image_generation_torch.models.layers import (
     SNConv2d,
     SNEmbedding,
     SNLinear,
+    _activate,
     _channel,
+    _fused,
+    _fused_norm,
     _moments,
     _SpectralNormLayer,
     advance_spectral_norm_,
@@ -63,6 +66,7 @@ from semantic_pyramid_for_image_generation_torch.models.vgg16 import (
 from semantic_pyramid_for_image_generation_torch.ops.pool import avg_pool_2d
 
 POWER_ITERATIONS = 10  # at a random init, as the benchmark's weights have them
+RELU = 0.0  # the batch norms' `negative_slope` for the ReLU that follows
 
 
 def attention(config: BigGANDeepConfig, channels: int) -> SelfAttention:
@@ -87,25 +91,30 @@ class ConditioningBatchNorm(nn.Module):
                                          affine=False)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
-                projected: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                projected: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                negative_slope: Optional[float] = None) -> torch.Tensor:
         """`projected`: (W_g c, W_b c) when the caller has computed them
-        (`GBlock`, through `sn_linears`)."""
+        (`GBlock`, through `sn_linears`); `negative_slope`: the activation
+        that follows (`layers._activate`; `GBlock` passes ReLU's 0)."""
         bn = self.batch_norm
-        mean, var = _moments(x, bn, self.training)
-        inv = torch.rsqrt(var + bn.eps)
         gain_c, bias_c = projected if projected is not None else (
             self.gain(cond), self.bias(cond))
         gain = 1.0 + gain_c
+        if _fused(x, self.training):
+            return _fused_norm(x, bn, gain, bias_c, negative_slope)
+        mean, var = _moments(x, bn, self.training)
+        inv = torch.rsqrt(var + bn.eps)
         if x.dtype == torch.float32:
             y = (x - _channel(mean)) * _channel(inv)
-            return y * _channel(gain) + _channel(bias_c)
-        # bfloat16: one pass over x, x * scale + shift in float32 with
+            return _activate(y * _channel(gain) + _channel(bias_c),
+                             negative_slope)
+        # bfloat16 eval: one pass over x, x * scale + shift in float32 with
         # scale = gain * rsqrt(var + eps) and shift = bias - mean * scale per
         # (row, channel), cast back; float32 keeps the literal order
         scale = gain * inv
         shift = bias_c - mean * scale
-        return torch.addcmul(_channel(shift), x, _channel(scale)).to(x.dtype)
+        return _activate(torch.addcmul(_channel(shift), x, _channel(scale)
+                                       ).to(x.dtype), negative_slope)
 
 
 def sn_linears(layers: List[SNLinear], x: torch.Tensor
@@ -180,15 +189,16 @@ class GBlock(nn.Module):
         rest = sn_linears([layer for bn in bns[1:]
                            for layer in (bn.gain, bn.bias)], cond)
         p1, p2, p3, p4 = [first] + [rest[i:i + 2] for i in (0, 2, 4)]
-        h = self.conv1(F.relu(self.bn1(x, cond, p1)))
-        h = F.relu(self.bn2(h, cond, p2))
+        # each batch norm applies the ReLU that follows it
+        h = self.conv1(self.bn1(x, cond, p1, RELU))
+        h = self.bn2(h, cond, p2, RELU)
         if x.shape[1] != self.out_channels:
             x = x[:, :self.out_channels]
         if self.upsample:
             h, x = upsample_nearest_2x(h), upsample_nearest_2x(x)
         h = self.conv2(h)
-        h = self.conv3(F.relu(self.bn3(h, cond, p3)))
-        h = self.conv4(F.relu(self.bn4(h, cond, p4)))
+        h = self.conv3(self.bn3(h, cond, p3, RELU))
+        h = self.conv4(self.bn4(h, cond, p4, RELU))
         return h + x
 
 
@@ -230,8 +240,8 @@ class BigGANDeepGenerator(nn.Module):
         for stage in self.blocks:
             for block in stage:
                 h = block(h, cond) if isinstance(block, GBlock) else block(h)
-        bn, act, conv = self.output_layer
-        return torch.tanh(conv(act(bn(h))))
+        bn, _, conv = self.output_layer  # the BN applies the ReLU
+        return torch.tanh(conv(bn(h, RELU)))
 
 
 class DBlock(nn.Module):

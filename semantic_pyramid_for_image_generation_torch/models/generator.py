@@ -109,7 +109,7 @@ class Generator(nn.Module):
             else:
                 x = module(x, masked, class_onehot)
             depth -= 1
-        for layer in self.final_block:
-            x = layer(x)
-        return x
+        up, bn, act, conv_1, act_1, conv_2, tanh = self.final_block
+        x = bn(up(x), act.negative_slope)  # the BN applies the LeakyReLU
+        return tanh(conv_2(act_1(conv_1(x))))
 

@@ -9,7 +9,10 @@ reference state dicts load with `strict=True`.
 
 Tensors are NCHW-logical in `torch.channels_last` memory. Parameters stay
 float32 and are cast to the activations' dtype at apply; batch-norm
-arithmetic runs in float32 and casts back, as the JAX bf16 path does.
+arithmetic runs in float32 and casts back, as the JAX bf16 path does. A
+training-mode batch norm of bf16 activations runs with the activation that
+follows it through Kernels 6-9 (ops/cuda/batch_norm.py): float32 in
+registers, one bf16 write.
 
 Training mode (`.train()`): every forward of a spectrally-normalized layer
 runs one power iteration and advances u/v; the batch norms normalize with
@@ -30,6 +33,11 @@ from torch.utils.checkpoint import checkpoint
 
 from semantic_pyramid_for_image_generation_torch.ops.cuda.attention import (
     PooledKVAttentionFunction,
+)
+from semantic_pyramid_for_image_generation_torch.ops.cuda.batch_norm import (
+    BatchNormApplyFunction,
+    BatchNormLink,
+    BatchNormStatsFunction,
 )
 from semantic_pyramid_for_image_generation_torch.ops.pool import (
     avg_pool_2d,
@@ -283,18 +291,24 @@ def _channel(t: torch.Tensor) -> torch.Tensor:
     return t[..., None, None]
 
 
+def _global_totals(sums: torch.Tensor, n: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(E[x], E[x^2], n / (n - 1)) over (B, H, W) of the global batch from
+    this rank's (2, C) [sum x, sum x^2] over its n = B*H*W rows: the sums
+    and the count summed over the ranks in one differentiable all-reduce."""
+    c = sums.shape[1]
+    count = torch.full((1,), n, dtype=torch.float32, device=sums.device)
+    totals = all_reduce_sum(torch.cat([sums.reshape(-1), count]))
+    n = totals[2 * c].detach()
+    return totals[:c] / n, totals[c:2 * c] / n, n / (n - 1.0)
+
+
 def _global_moments(x32: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(E[x], E[x^2], n / (n - 1)) over (B, H, W) of the global batch: the
-    per-channel sums and the count, summed over the ranks in one
-    differentiable all-reduce."""
-    c = x32.shape[1]
-    count = torch.full((1,), x32.numel() // c, dtype=torch.float32,
-                       device=x32.device)
-    sums = all_reduce_sum(torch.cat([x32.sum(dim=(0, 2, 3)),
-                                     (x32 * x32).sum(dim=(0, 2, 3)), count]))
-    n = sums[2 * c].detach()
-    return sums[:c] / n, sums[c:2 * c] / n, n / (n - 1.0)
+    """`_global_totals` of a float32 x."""
+    return _global_totals(torch.stack([x32.sum(dim=(0, 2, 3)),
+                                       (x32 * x32).sum(dim=(0, 2, 3))]),
+                          x32.numel() // x32.shape[1])
 
 
 def _moments(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool
@@ -316,6 +330,13 @@ def _moments(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool
         unbiased = n / max(n - 1, 1)
     else:
         mean, ex2, unbiased = _global_moments(x32)
+    return _batch_moments(bn, mean, ex2, unbiased)
+
+
+def _batch_moments(bn: nn.BatchNorm2d, mean: torch.Tensor, ex2: torch.Tensor,
+                   unbiased) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_moments`' training tail: var = E[x^2] - E[x]^2 and bn's momentum
+    step, unless a checkpoint's recompute replays."""
     var = ex2 - mean * mean
     guard = getattr(bn, "recompute_guard", None)
     if guard is not None and guard.replaying:
@@ -328,10 +349,54 @@ def _moments(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool
     return mean, var
 
 
+def _fused(x: torch.Tensor, training: bool) -> bool:
+    """Whether a batch norm of x runs Kernels 6-9 (ops/cuda/batch_norm.py):
+    in training mode on bf16 activations. Float32 (the parity path) and eval
+    mode keep the literal order."""
+    return training and x.dtype == torch.bfloat16
+
+
+def _fused_norm(x: torch.Tensor, bn: nn.BatchNorm2d, gain: torch.Tensor,
+                bias: torch.Tensor, negative_slope: Optional[float]
+                ) -> torch.Tensor:
+    """act((x - mean) * rsqrt(var + eps) * gain + bias) for float32 tables
+    gain, bias of one row (per channel) or one per sample, with `_moments`'
+    batch statistics and momentum step: Kernel 6's sums, the statistics and
+    tables as small ops on (C,) and (B, C), then Kernel 7 applies
+    x * scale + shift and the activation in one pass; the backward is
+    Kernels 8 and 9."""
+    x = x.contiguous(memory_format=torch.channels_last)
+    link = BatchNormLink()
+    sums = BatchNormStatsFunction.apply(x, link)
+    n = x.numel() // x.shape[1]
+    if world_size() == 1:
+        mean, ex2, unbiased = sums[0] / n, sums[1] / n, n / max(n - 1, 1)
+    else:
+        mean, ex2, unbiased = _global_totals(sums, n)
+    mean, var = _batch_moments(bn, mean, ex2, unbiased)
+    scale = gain * torch.rsqrt(var + bn.eps)
+    shift = bias - mean * scale
+    slope = 1.0 if negative_slope is None else negative_slope
+    return BatchNormApplyFunction.apply(x, scale.contiguous(),
+                                        shift.contiguous(), slope, link)
+
+
+def _activate(y: torch.Tensor, negative_slope: Optional[float]
+              ) -> torch.Tensor:
+    """No activation (None), ReLU (0) or LeakyReLU(negative_slope)."""
+    if negative_slope is None:
+        return y
+    if negative_slope == 0.0:
+        return F.relu(y)
+    return F.leaky_relu(y, negative_slope)
+
+
 class ConditionalBatchNorm(nn.Module):
     """Class-conditional batch norm: affine-free BN (momentum 0.001), then a
     per-class (scale, bias) row of an embedding table initialized to (1, 0).
-    Keys: `batch_norm.running_*`, `embedding.weight`."""
+    Keys: `batch_norm.running_*`, `embedding.weight`. `negative_slope`: the
+    activation that follows (`_activate`), fused into the bf16 training
+    pass."""
 
     def __init__(self, features: int, num_classes: int,
                  momentum: float = 0.001, eps: float = 1e-5):
@@ -348,25 +413,35 @@ class ConditionalBatchNorm(nn.Module):
         self.embedding.weight[:, self.features:] = 0.0
         self.batch_norm.reset_running_stats()
 
-    def forward(self, x: torch.Tensor, class_onehot: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, class_onehot: torch.Tensor,
+                negative_slope: Optional[float] = None) -> torch.Tensor:
         bn = self.batch_norm
+        row = self.embedding.weight[class_onehot.argmax(dim=-1)]
+        scale, bias = row[:, :self.features], row[:, self.features:]
+        if _fused(x, self.training):
+            return _fused_norm(x, bn, scale, bias, negative_slope)
         mean, var = _moments(x, bn, self.training)
         inv = torch.rsqrt(var + bn.eps)
         y = (x.float() - _channel(mean)) * _channel(inv)
-        row = self.embedding.weight[class_onehot.argmax(dim=-1)]
-        scale, bias = row[:, :self.features], row[:, self.features:]
-        return (_channel(scale) * y + _channel(bias)).to(x.dtype)
+        return _activate((_channel(scale) * y + _channel(bias)).to(x.dtype),
+                         negative_slope)
 
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d (affine, momentum 0.1), float32 arithmetic in the JAX
-    order: (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+    order: (x - mean) * (rsqrt(var + eps) * scale) + bias; then the
+    activation of `negative_slope`, fused into the bf16 training pass."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                negative_slope: Optional[float] = None) -> torch.Tensor:
+        if _fused(x, self.training):
+            return _fused_norm(x, self, self.weight[None], self.bias[None],
+                               negative_slope)
         mean, var = _moments(x, self, self.training)
         inv = torch.rsqrt(var + self.eps) * self.weight
         y = (x.float() - _channel(mean)) * _channel(inv)
-        return (y + _channel(self.bias)).to(x.dtype)
+        return _activate((y + _channel(self.bias)).to(x.dtype),
+                         negative_slope)
 
 
 class Upsample2x(nn.Module):
@@ -438,7 +513,9 @@ class GeneratorResidualBlock(nn.Module):
     main: CBN -> lrelu -> up2x -> SN3x3 -> CBN -> lrelu -> SN3x3;
     residual: up2x -> SN1x1; feature branch: SN3x3 on (masked feats ++ mask);
     output = main + residual + mapped features. In bf16 the residual runs
-    up2x(SN1x1(x)), exact by linearity, as the JAX bf16 path does."""
+    up2x(SN1x1(x)), exact by linearity, as the JAX bf16 path does. Each CBN
+    applies the LeakyReLU that follows it (the `nn.LeakyReLU` entries give
+    the slope)."""
 
     def __init__(self, in_channels: int, out_channels: int, num_classes: int,
                  feature_channels: int):
@@ -460,8 +537,8 @@ class GeneratorResidualBlock(nn.Module):
     def forward(self, x: torch.Tensor, masked_features: torch.Tensor,
                 class_onehot: torch.Tensor) -> torch.Tensor:
         cbn_1, act_1, up, conv_1, cbn_2, act_2, conv_2 = self.main_block
-        y = up(act_1(cbn_1(x, class_onehot)))
-        y = conv_2(act_2(cbn_2(conv_1(y), class_onehot)))
+        y = up(cbn_1(x, class_onehot, act_1.negative_slope))
+        y = conv_2(cbn_2(conv_1(y), class_onehot, act_2.negative_slope))
         up_res, res_conv = self.residual_mapping
         if x.dtype == torch.float32:
             res = res_conv(up_res(x))

@@ -15,6 +15,7 @@ from typing import Dict
 
 from semantic_pyramid_for_image_generation_torch.ops.cuda import (
     attention,
+    batch_norm,
     pool,
     resize,
 )
@@ -26,6 +27,10 @@ KERNELS = {
     "upsample_2x": (resize, "launches"),
     "max_pool_2x2_backward": (pool, "backward_launches"),
     "upsample_2x_backward": (resize, "backward_launches"),
+    "batch_norm_stats": (batch_norm, "stats_launches"),
+    "batch_norm_apply": (batch_norm, "apply_launches"),
+    "batch_norm_backward_sums": (batch_norm, "backward_sums_launches"),
+    "batch_norm_backward_dx": (batch_norm, "backward_dx_launches"),
 }
 
 

@@ -1,4 +1,4 @@
-"""What the three kernel wrappers share: the device check, dtype codes, the
+"""What the kernel wrappers share: the device check, dtype codes, the
 stream handed to a kernel, and the torch custom-op namespace their kernels
 are registered under."""
 
@@ -8,7 +8,7 @@ import ctypes
 
 import torch
 
-NAMESPACE = "spig"  # torch.ops.spig.<kernel>: the five kernels as custom ops
+NAMESPACE = "spig"  # torch.ops.spig.<kernel>: the kernels as custom ops
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh
 

@@ -23,19 +23,26 @@ from pathlib import Path
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 BUILD_ROOT = _PACKAGE / "_build"
-SOURCES = ("attention.cu", "max_pool.cu", "upsample.cu", "runtime.cu")
+SOURCES = ("attention.cu", "max_pool.cu", "upsample.cu", "batch_norm.cu",
+           "runtime.cu")
 HEADERS = ("common.cuh",)
 LIBRARY = "libspig_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "spig_attention_forward": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "spig_max_pool_2x2": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
     "spig_upsample_2x": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
     "spig_max_pool_2x2_backward": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "spig_upsample_2x_backward": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
+    "spig_batch_norm_workspace": (_L, [_L, _I, _I]),
+    "spig_batch_norm_sums": (_I, [_P, _P, _P, _P, _F, _P, _P, _L, _I, _I, _P]),
+    "spig_batch_norm_apply": (_I, [_P, _P, _P, _F, _P, _L, _I, _I, _P]),
+    "spig_batch_norm_backward_dx": (_I, [_P, _P, _P, _P, _P, _F, _P, _L, _I,
+                                         _I, _P]),
     "spig_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -102,6 +102,10 @@ PORT_KERNELS = {
     "upsample_2x": ("upsample_2x_kernel",),
     "max_pool_2x2_backward": ("max_pool_2x2_backward_kernel",),
     "upsample_2x_backward": ("upsample_2x_backward_kernel",),
+    "batch_norm_stats": ("batch_norm_stats_kernel",),
+    "batch_norm_apply": ("batch_norm_apply_kernel",),
+    "batch_norm_backward_sums": ("batch_norm_backward_sums_kernel",),
+    "batch_norm_backward_dx": ("batch_norm_backward_dx_kernel",),
 }
 KERNEL_NAMES = tuple(n for names in PORT_KERNELS.values() for n in names)
 # device op categories by name, first match wins

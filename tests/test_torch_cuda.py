@@ -25,6 +25,11 @@ Tolerances:
     does (its exp is ex2.approx and its row sums run in another order, so a
     p may round the other way); the upsample kernels round once, the plain
     versions between their two passes.
+  * batch norms (Kernels 6-9, bf16 only): sums within 1e-5 of the sum of
+    their terms' magnitudes (float32 in another order); bf16 outputs one
+    rounding apart (2**-7 relative: FMA against a rounded product).
+    Repeated launches are bitwise equal (fixed-order sums, no float
+    atomics).
 """
 
 import pytest
@@ -64,6 +69,11 @@ def cuda():
 
 def _cl(t):
     return t.contiguous(memory_format=torch.channels_last)
+
+
+def _counts(**launched):
+    """Every kernel's launch count: `launched`, 0 for the others."""
+    return {**dict.fromkeys(kernels.KERNELS, 0), **launched}
 
 
 @pytest.mark.cuda
@@ -194,9 +204,9 @@ def test_kernels_count_launches(cuda):
     pooled_kv_attention(q, q[:, :4], torch.randn(1, 4, 8, device=cuda))
     max_pool_2x2_backward(x, _cl(torch.randn(1, 8, 2, 2, device=cuda)))
     upsample_2x_backward(x)
-    assert kernels.launch_counts() == {
-        "pooled_kv_attention": 1, "max_pool_2x2": 1, "upsample_2x": 2,
-        "max_pool_2x2_backward": 1, "upsample_2x_backward": 1}
+    assert kernels.launch_counts() == _counts(
+        pooled_kv_attention=1, max_pool_2x2=1, upsample_2x=2,
+        max_pool_2x2_backward=1, upsample_2x_backward=1)
     with pytest.raises(ValueError):  # NCHW-contiguous memory is refused
         max_pool_2x2(torch.randn(1, 8, 4, 4, device=cuda))
 
@@ -314,9 +324,8 @@ def test_program_on_card_reads_the_planted_weights(cuda, tmp_path, dtype):
     atol = 5e-6 if dtype == "float32" else 2 * 2 ** -7  # 2 bf16 ulps of 1
     kernels.reset_launch_counts()
     got = ProgramArtifact(str(tmp_path / "art"), cuda).generate(*inputs)
-    assert kernels.launch_counts() == {
-        "pooled_kv_attention": 1, "max_pool_2x2": 6, "upsample_2x": 11,
-        "max_pool_2x2_backward": 0, "upsample_2x_backward": 0}
+    assert kernels.launch_counts() == _counts(
+        pooled_kv_attention=1, max_pool_2x2=6, upsample_2x=11)
     original = eager(g, v)
     torch.testing.assert_close(got, original, rtol=0, atol=atol)
     plant(str(tmp_path / "art"), str(tmp_path / "planted"))
@@ -407,9 +416,9 @@ def test_functions_take_the_kernels_forward_and_backward(cuda):
     x = _cl(torch.randn(2, 16, 8, 8, device=cuda)).requires_grad_(True)
     y = Upsample2xFunction.apply(MaxPool2x2Function.apply(x))
     y.square().sum().backward()
-    assert kernels.launch_counts() == {
-        "pooled_kv_attention": 0, "max_pool_2x2": 1, "upsample_2x": 1,
-        "max_pool_2x2_backward": 1, "upsample_2x_backward": 1}
+    assert kernels.launch_counts() == _counts(
+        max_pool_2x2=1, upsample_2x=1, max_pool_2x2_backward=1,
+        upsample_2x_backward=1)
     xc = x.detach().cpu().requires_grad_(True)
     Upsample2xFunction.apply(MaxPool2x2Function.apply(xc)).square().sum(
         ).backward()
@@ -899,3 +908,257 @@ def test_two_gloo_ranks_on_one_card_match_one_rank(cuda, tmp_path):
     print(f"two gloo ranks on the card against one process: {readings}, "
           f"limits {PARALLEL_LIMITS}")
     assert all(readings[k] <= v for k, v in PARALLEL_LIMITS.items()), readings
+
+
+# ------------------------------------------ batch norms, Kernels 6-9 --
+
+def _batch_norm_sites():
+    """(shape, tables per row, slope) of every training-mode batch norm of
+    the two generators at the cells' batches, each shape once: BigGAN-deep's
+    48 conditional norms (per-row tables) and its output BN at 64 rows,
+    followed by ReLU; the SP-GAN's 10 conditional norms and its final BN at
+    128 rows, followed by LeakyReLU(0.2)."""
+    from semantic_pyramid_for_image_generation_torch.config import (
+        BigGANDeepConfig,
+        PyramidGANConfig,
+    )
+
+    big, sp = BigGANDeepConfig(), PyramidGANConfig()
+    sites = []
+    for cin, _, res in big.generator_stages:
+        hidden, r = cin // big.bottleneck_ratio, res // 2
+        sites += [((64, cin, r, r), True, 0.0), ((64, hidden, r, r), True, 0.0),
+                  ((64, hidden, res, res), True, 0.0)]
+    sites.append(((64, big.generator_stages[-1][1], big.resolution,
+                   big.resolution), False, 0.0))
+    for i, (cin, cout) in enumerate(sp.generator_block_channels):
+        hw = 4 * 2 ** i
+        sites += [((128, cin, hw, hw), True, 0.2),
+                  ((128, cout, 2 * hw, 2 * hw), True, 0.2)]
+    sites.append(((128, sp.generator_block_channels[-1][1], sp.image_size,
+                   sp.image_size), False, 0.2))
+    return list(dict.fromkeys(sites))
+
+
+BATCH_NORM_SITES = _batch_norm_sites()
+
+
+def _bn_inputs(device, shape, per_row, seed=0):
+    """bf16 x and dy (channels_last, x off zero so the statistics' sums do
+    not cancel), float32 tables and k in the ranges a training run shows."""
+    g = torch.Generator(device).manual_seed(seed)
+    b, c = shape[:2]
+    rows = b if per_row else 1
+    x = _cl((0.5 + 2 * torch.randn(shape, device=device, generator=g)).to(
+        torch.bfloat16))
+    dy = _cl(torch.randn(shape, device=device, generator=g).to(torch.bfloat16))
+    scale = 1 + 0.3 * torch.randn(rows, c, device=device, generator=g)
+    shift = 0.5 * torch.randn(rows, c, device=device, generator=g)
+    k = 0.1 * torch.randn(2, c, device=device, generator=g)
+    return x, dy, scale, shift, k
+
+
+def _assert_sums(got, want, size):
+    """fp32 sums in another order: within 1e-5 of the sum of the terms'
+    magnitudes (`size`), per output."""
+    err = (got - want).abs()
+    assert bool((err <= 1e-5 * size).all()), float((err / size).max())
+
+
+def _assert_bf16(got, want):
+    """One bf16 rounding apart (FMA against a rounded product): 2**-7
+    relative, 1e-5 of the largest output absolute."""
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, rtol=2.0 ** -7,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", BATCH_NORM_SITES, ids=str)
+def test_batch_norm_kernels_match_plain(cuda, site):
+    """Kernels 6-9 against their plain versions at every batch-norm site of
+    the two generators, bitwise repeatable (their sums in a fixed order);
+    and the bands catch two planted faults: a row's scale read from another
+    row (Kernel 7), a channel's mean term dropped (Kernel 9)."""
+    from semantic_pyramid_for_image_generation_torch.ops.cuda import (
+        batch_norm as bn,
+    )
+
+    shape, per_row, slope = site
+    x, dy, scale, shift, k = _bn_inputs(cuda, shape, per_row)
+    # Kernel 6
+    got = bn.batch_norm_stats(x)
+    assert torch.equal(got, bn.batch_norm_stats(x))
+    xf = x.float()
+    _assert_sums(got, bn.batch_norm_stats_plain(x),
+                 torch.stack([xf.abs().sum(dim=(0, 2, 3)),
+                              (xf * xf).sum(dim=(0, 2, 3))]))
+    # Kernel 7
+    got = bn.batch_norm_apply(x, scale, shift, slope)
+    assert torch.equal(got, bn.batch_norm_apply(x, scale, shift, slope))
+    want = bn.batch_norm_apply_plain(x, scale, shift, slope)
+    _assert_bf16(got, want)
+    if per_row:
+        wrong = scale.clone()
+        wrong[0] = scale[1]
+        with pytest.raises(AssertionError):
+            _assert_bf16(bn.batch_norm_apply(x, wrong, shift, slope), want)
+    # Kernel 8
+    got = bn.batch_norm_backward_sums(dy, x, scale, shift, slope)
+    assert torch.equal(got, bn.batch_norm_backward_sums(dy, x, scale, shift,
+                                                        slope))
+    gp = bn._g(dy, x, scale, shift, slope).abs()
+    dims = (2, 3) if per_row else (0, 2, 3)
+    size = torch.stack([gp.sum(dim=dims), (gp * xf.abs()).sum(dim=dims)])
+    _assert_sums(got, bn.batch_norm_backward_sums_plain(dy, x, scale, shift,
+                                                        slope),
+                 size.reshape(got.shape))
+    del gp, size
+    # Kernel 9
+    got = bn.batch_norm_backward_dx(dy, x, scale, shift, k, slope)
+    assert torch.equal(got, bn.batch_norm_backward_dx(dy, x, scale, shift, k,
+                                                      slope))
+    want = bn.batch_norm_backward_dx_plain(dy, x, scale, shift, k, slope)
+    _assert_bf16(got, want)
+    dropped = k.clone()
+    dropped[0, 0] = 0.0
+    with pytest.raises(AssertionError):
+        _assert_bf16(bn.batch_norm_backward_dx(dy, x, scale, shift, dropped,
+                                               slope), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels,offset", [(48, 0), (12, 0), (64, 1)])
+def test_batch_norm_kernels_element_wise_form(cuda, channels, offset):
+    """C not a multiple of 8, or x one element into its storage: the
+    kernels take their element-wise (VEC = 1) form."""
+    from semantic_pyramid_for_image_generation_torch.ops.cuda import (
+        batch_norm as bn,
+    )
+
+    b, h, w, c = 3, 5, 7, channels
+    x, dy, scale, shift, k = _bn_inputs(cuda, (b, c, h, w), True, seed=c)
+    flat = torch.empty(b * h * w * c + offset, device=cuda,
+                       dtype=torch.bfloat16)
+    x = flat[offset:].view(b, h, w, c).permute(0, 3, 1, 2).copy_(x)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    xf = x.float()
+    _assert_sums(bn.batch_norm_stats(x), bn.batch_norm_stats_plain(x),
+                 torch.stack([xf.abs().sum(dim=(0, 2, 3)),
+                              (xf * xf).sum(dim=(0, 2, 3))]))
+    _assert_bf16(bn.batch_norm_apply(x, scale, shift, 0.2),
+                 bn.batch_norm_apply_plain(x, scale, shift, 0.2))
+    _assert_bf16(bn.batch_norm_backward_dx(dy, x, scale, shift, k, 0.2),
+                 bn.batch_norm_backward_dx_plain(dy, x, scale, shift, k, 0.2))
+
+
+def _generator_inputs(arch: str, device, rows: int = 2):
+    """(G at full width in bf16, training mode; its forward's arguments)."""
+    import dataclasses
+
+    from semantic_pyramid_for_image_generation_torch.config import (
+        BigGANDeepConfig,
+        PyramidGANConfig,
+    )
+
+    g = torch.Generator(device).manual_seed(0)
+    if arch == "biggan_deep":
+        from semantic_pyramid_for_image_generation_torch.models.biggan_deep import (
+            make_biggan_deep,
+        )
+
+        cfg = BigGANDeepConfig(compute_dtype="bfloat16")
+        generator, _ = make_biggan_deep(cfg, device, g)
+        return generator, (torch.randn(rows, cfg.dim_z, device=device),
+                           torch.randint(0, cfg.num_classes, (rows,),
+                                         device=device))
+    from semantic_pyramid_for_image_generation_torch.models import make_models
+
+    cfg = dataclasses.replace(PyramidGANConfig(), compute_dtype="bfloat16")
+    generator, _ = make_models(cfg, device, g)
+    generator.train()
+    conv = [torch.randn(rows, c, hw, hw, device=device)
+            for hw, c in zip(cfg.pyramid_spatial, cfg.vgg_conv_channels)]
+    features = conv + [torch.randn(rows, cfg.vgg_fc7_dim, device=device),
+                       torch.randn(rows, cfg.num_classes, device=device)]
+    masks = [torch.ones(rows, 1, hw, hw, device=device)
+             for hw in cfg.pyramid_spatial] + [
+        torch.ones_like(f) for f in features[5:]]
+    onehot = torch.eye(cfg.num_classes, device=device)[:rows]
+    return generator, (torch.randn(rows, cfg.latent_dim, device=device),
+                       features, masks, onehot)
+
+
+BN_KERNELS = ("batch_norm_stats", "batch_norm_apply",
+              "batch_norm_backward_sums", "batch_norm_backward_dx")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,norms", [("biggan_deep", 49), ("sp_gan", 11)])
+def test_batch_norm_launches_per_generator_pass(cuda, arch, norms):
+    """A training-mode bf16 G forward launches Kernels 6 and 7 once per
+    batch norm (BigGAN-deep: 48 conditional and the output BN; the SP-GAN:
+    10 and the final BN), with or without a graph; its backward Kernels 8
+    and 9 as often; an eval forward none."""
+    generator, args = _generator_inputs(arch, cuda)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        generator(*args)
+    assert {k: kernels.launch_counts()[k] for k in BN_KERNELS} == {
+        "batch_norm_stats": norms, "batch_norm_apply": norms,
+        "batch_norm_backward_sums": 0, "batch_norm_backward_dx": 0}
+    kernels.reset_launch_counts()
+    generator(*args).float().square().mean().backward()
+    assert {k: kernels.launch_counts()[k] for k in BN_KERNELS} == dict.fromkeys(
+        BN_KERNELS, norms)
+    generator.eval()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        generator(*args)
+    assert {k: kernels.launch_counts()[k] for k in BN_KERNELS} == dict.fromkeys(
+        BN_KERNELS, 0)
+
+
+@pytest.mark.cuda
+def test_finetune_step_launches_no_batch_norm_kernel(cuda):
+    """The VGG-16 has no batch norm: its fine-tune step leaves Kernels 6-9
+    at 0."""
+    kernels.reset_launch_counts()
+    _tiny_finetune(cuda, 0)
+    assert {k: kernels.launch_counts()[k] for k in BN_KERNELS} == dict.fromkeys(
+        BN_KERNELS, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row,slope", [(True, 0.0), (False, 0.2)])
+def test_batch_norm_functions_on_card_match_cpu(cuda, per_row, slope):
+    """The fused training-mode norm through Kernels 6-9 against the same on
+    the CPU (plain versions): output one bf16 rounding apart, gradients of
+    x and of the tables within 1e-2 relative L2, running statistics within
+    1e-5."""
+    from semantic_pyramid_for_image_generation_torch.models.layers import (
+        _fused_norm,
+    )
+
+    shape = (8, 64, 16, 16)
+    x, _, gain, bias, _ = _bn_inputs(cuda, shape, per_row, seed=3)
+    outs = {}
+    for device in (cuda, torch.device("cpu")):
+        bn = torch.nn.BatchNorm2d(64, affine=False, momentum=0.1).to(device)
+        xd = x.detach().to(device).clone(
+            memory_format=torch.channels_last).requires_grad_(True)
+        gd, bd = (t.detach().to(device).clone().requires_grad_(True)
+                  for t in (gain, bias))
+        y = _fused_norm(xd, bn, gd, bd, slope)
+        probe = torch.linspace(-1, 1, y.numel(), device=device).reshape(
+            y.shape)
+        (y.float() * probe).sum().backward()
+        outs[device.type] = [t.detach().float().cpu() for t in (
+            y, xd.grad, gd.grad, bd.grad, bn.running_mean, bn.running_var)]
+    (y, *grads, mean, var), (y_cpu, *grads_cpu, mean_cpu, var_cpu) = (
+        outs["cuda"], outs["cpu"])
+    _assert_bf16(y, y_cpu)
+    for got, want in zip(grads, grads_cpu):
+        assert float((got - want).norm() / want.norm()) <= 1e-2
+    torch.testing.assert_close(mean, mean_cpu, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(var, var_cpu, rtol=1e-5, atol=1e-6)

@@ -149,7 +149,9 @@ def test_cpu_tensors_take_plain_versions_without_counting():
                                rtol=0, atol=0)
     assert kernels.launch_counts() == {
         "pooled_kv_attention": 0, "max_pool_2x2": 0, "upsample_2x": 0,
-        "max_pool_2x2_backward": 0, "upsample_2x_backward": 0}
+        "max_pool_2x2_backward": 0, "upsample_2x_backward": 0,
+        "batch_norm_stats": 0, "batch_norm_apply": 0,
+        "batch_norm_backward_sums": 0, "batch_norm_backward_dx": 0}
 
 
 def test_wrappers_reject_bad_inputs():

@@ -62,6 +62,7 @@ from semantic_pyramid_for_image_generation_torch.models.layers import (
 )
 from semantic_pyramid_for_image_generation_torch.ops.cuda import (
     attention,
+    batch_norm,
     pool,
     resize,
 )
@@ -80,11 +81,13 @@ from test_torch_train_step import (
     assert_spectral_and_batch_stats_match,
 )
 from torch_parallel_rank import (
+    BATCH_NORM_KERNELS,
     CANONICAL,
     PERF_MODE_LAUNCHES,
     PERF_MODES,
     WORKER,
     build_state,
+    float32_launches,
     gradients,
     join,
     planted,
@@ -263,13 +266,12 @@ def test_fused_d_needs_the_canonical_projection():
 
 WRAPPERS = ((attention, "pooled_kv_attention"), (pool, "max_pool_2x2"),
             (resize, "upsample_2x"), (pool, "max_pool_2x2_backward"),
-            (resize, "upsample_2x_backward"))
+            (resize, "upsample_2x_backward"),
+            *((batch_norm, name) for name in BATCH_NORM_KERNELS))
 
 
-@pytest.mark.parametrize("mode", list(PERF_MODES))
-def test_kernel_wrapper_calls_per_step(monkeypatch, mode):
-    """Calls per step of the five kernel wrappers in each mode, as
-    PERF_MODE_LAUNCHES (tests/torch_parallel_rank.py) works them out."""
+def _wrapper_calls(monkeypatch, mode, dtype):
+    """Calls of the nine kernel wrappers in one step of `mode` at `dtype`."""
     fields, flags = PERF_MODES[mode]
     calls = dict.fromkeys([name for _, name in WRAPPERS], 0)
     for module, name in WRAPPERS:
@@ -277,10 +279,27 @@ def test_kernel_wrapper_calls_per_step(monkeypatch, mode):
             calls[_n] += 1
             return _f(*args)
         monkeypatch.setattr(module, name, counted)
-    cfg = dataclasses.replace(CFG, **fields)
+    cfg = dataclasses.replace(CFG, compute_dtype=dtype, **fields)
     make_train_step(**flags)(_state(cfg), batch_to_device(
         _batches(cfg, 1)[0], CPU))
-    assert calls == PERF_MODE_LAUNCHES[mode]
+    return calls
+
+
+@pytest.mark.parametrize("mode", list(PERF_MODES))
+def test_kernel_wrapper_calls_per_step(monkeypatch, mode):
+    """Calls per float32 step of the kernel wrappers in each mode, as
+    PERF_MODE_LAUNCHES (tests/torch_parallel_rank.py) works them out: the
+    batch norms' none."""
+    assert _wrapper_calls(monkeypatch, mode, "float32") == float32_launches(
+        PERF_MODE_LAUNCHES[mode])
+
+
+@pytest.mark.parametrize("mode", list(PERF_MODES))
+def test_kernel_wrapper_calls_per_bf16_step(monkeypatch, mode):
+    """Calls per bfloat16 step, what the card counts in each mode: the
+    batch norms' too, the remat_blocks recompute's included."""
+    assert _wrapper_calls(monkeypatch, mode, "bfloat16") == \
+        PERF_MODE_LAUNCHES[mode]
 
 
 def test_two_gloo_ranks_with_fused_d_and_remat_blocks(tmp_path):

@@ -321,7 +321,9 @@ def test_analyze_a_hand_written_trace(trace_dir):
         2 * 5 * 512 * 2 / 40e-6 / 2 ** 30, 1)
     assert report["launches_per_step"] == {
         "pooled_kv_attention": 0, "max_pool_2x2": 0, "upsample_2x": 1,
-        "max_pool_2x2_backward": 0, "upsample_2x_backward": 0}
+        "max_pool_2x2_backward": 0, "upsample_2x_backward": 0,
+        "batch_norm_stats": 0, "batch_norm_apply": 0,
+        "batch_norm_backward_sums": 0, "batch_norm_backward_dx": 0}
     formatting = {(r["op"], r["within"]) for r in
                   report["data_formatting_ops"]}
     assert formatting == {
@@ -336,6 +338,40 @@ def test_analyze_a_hand_written_trace(trace_dir):
     assert report["device_busy_pct"] == round(100 * 2 * 105 / 2000, 2)
     assert report["step_mfu_pct"] == 25.0
     assert report["step_mfu_pct_unprofiled"] == 50.0
+
+
+def test_analyze_counts_each_batch_norm_kernel_by_its_name(tmp_path):
+    """Kernels 6-9 by their device names, as a trace demangles them; Adam's
+    `multi_tensor_apply_kernel` is no batch-norm apply."""
+    names = {
+        "batch_norm_stats": "void spig::(anonymous namespace)::"
+                            "batch_norm_stats_kernel<8>(...)",
+        "batch_norm_apply": "void spig::(anonymous namespace)::"
+                            "batch_norm_apply_kernel<8>(...)",
+        "batch_norm_backward_sums": "void spig::(anonymous namespace)::"
+                                    "batch_norm_backward_sums_kernel<1>(...)",
+        "batch_norm_backward_dx": "void spig::(anonymous namespace)::"
+                                  "batch_norm_backward_dx_kernel<8>(...)",
+    }
+    events = []
+    for step in range(2):
+        t0, ext = 1000 * step, 100 * step
+        for i, (op, kernel) in enumerate(names.items()):
+            events += [_cpu_op(f"spig::{op}", ext + i, t0 + 100 * i, 50),
+                       _device(kernel, ext + i, t0 + 100 * i + 10, 20)]
+        events += [_cpu_op("aten::_foreach_add_", ext + 9, t0 + 600, 50),
+                   _device("void at::native::(anonymous namespace)::"
+                           "multi_tensor_apply_kernel<...>", ext + 9,
+                           t0 + 610, 20)]
+    (tmp_path / ps.TRACE).write_text(json.dumps({"traceEvents": events}))
+    (tmp_path / ps.CAPTURE).write_text(json.dumps({
+        "batch": 2, "dtype": "bfloat16", "steps": 2, "warmup": 1,
+        "wall_us_per_step": 1000.0, "unprofiled_us_per_step": 500.0,
+        "step_flops": 1e9, "card": "NVIDIA H100 80GB HBM3, 700.00 W"}))
+    report = ps.analyze(str(tmp_path), 2)
+    assert report["launches_per_step"] == {
+        **dict.fromkeys(ps.PORT_KERNELS, 0), **dict.fromkeys(names, 1)}
+    assert report["category_shares_pct"]["port kernels"] == 80.0
 
 
 def test_analyze_only_rereads_a_kept_log_dir(trace_dir, capsys):

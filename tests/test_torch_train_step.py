@@ -338,9 +338,11 @@ def test_generate_after_training_reads_no_stale_weights():
 def test_step_calls_each_kernel_wrapper_as_the_card_counts(monkeypatch):
     """The launches per step that chip_smoke.py checks on the card, counted
     here at the wrappers: 5 attention, 22 upsample, 30 max pool, 14 max-pool
-    backward, 11 upsample backward."""
+    backward, 11 upsample backward; none of the batch norms' four in this
+    float32 step (they run bf16 training norms)."""
     from semantic_pyramid_for_image_generation_torch.ops.cuda import (
         attention,
+        batch_norm,
         pool,
         resize,
     )
@@ -351,7 +353,10 @@ def test_step_calls_each_kernel_wrapper_as_the_card_counts(monkeypatch):
             (pool, "max_pool_2x2", "max_pool_2x2"),
             (pool, "max_pool_2x2_backward", "max_pool_2x2_backward"),
             (resize, "upsample_2x", "upsample_2x"),
-            (resize, "upsample_2x_backward", "upsample_2x_backward")):
+            (resize, "upsample_2x_backward", "upsample_2x_backward"),
+            *((batch_norm, n, n) for n in (
+                "batch_norm_stats", "batch_norm_apply",
+                "batch_norm_backward_sums", "batch_norm_backward_dx"))):
         def counted(*args, _f=getattr(module, fn), _n=name):
             calls[_n] += 1
             return _f(*args)
@@ -360,7 +365,9 @@ def test_step_calls_each_kernel_wrapper_as_the_card_counts(monkeypatch):
     make_train_step()(state, _tiny_batch(), torch.Generator().manual_seed(3))
     assert calls == {"pooled_kv_attention": 5, "max_pool_2x2": 30,
                      "upsample_2x": 22, "max_pool_2x2_backward": 14,
-                     "upsample_2x_backward": 11}
+                     "upsample_2x_backward": 11, "batch_norm_stats": 0,
+                     "batch_norm_apply": 0, "batch_norm_backward_sums": 0,
+                     "batch_norm_backward_dx": 0}
 
 
 def test_exact_float32_covers_the_autograd_backward():

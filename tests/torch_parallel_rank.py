@@ -72,22 +72,37 @@ PERF_MODES = {
     "all": ({**CANONICAL, "remat_blocks": True},
             {"fused_discriminator": True, "remat_vgg": True}),
 }
-# kernel launches per train step in each mode (the wrappers of
-# ops/cuda/{attention,resize,pool}.py): the fused D pass drops one D
-# attention, its KV pool and that pool's backward; remat_vgg re-runs the
-# VGG's 5 pools on the fakes; remat_blocks the 2 upsamples of each of G's 5
-# blocks in the G phase (the D phase's G forward keeps no graph, so it
-# does not recompute)
+# kernel launches per bf16 train step in each mode (the wrappers of
+# ops/cuda/{attention,resize,pool,batch_norm}.py): the fused D pass drops
+# one D attention, its KV pool and that pool's backward; remat_vgg re-runs
+# the VGG's 5 pools on the fakes; remat_blocks the 2 upsamples and the 2
+# conditional batch norms of each of G's 5 blocks in the G phase (the D
+# phase's G forward keeps no graph, so it does not recompute). G's 11
+# training-mode batch norms run Kernels 6 and 7 in each of its two forwards
+# and Kernels 8 and 9 in its one backward. A float32 step launches no
+# batch-norm kernel (`float32_launches`).
+BATCH_NORM_KERNELS = ("batch_norm_stats", "batch_norm_apply",
+                      "batch_norm_backward_sums", "batch_norm_backward_dx")
 PERF_MODE_LAUNCHES = {
     mode: dict(zip(("pooled_kv_attention", "upsample_2x", "max_pool_2x2",
-                    "max_pool_2x2_backward", "upsample_2x_backward"), counts))
+                    "max_pool_2x2_backward", "upsample_2x_backward",
+                    *BATCH_NORM_KERNELS), counts))
     for mode, counts in {
-        "default": (5, 22, 30, 14, 11), "canonical": (5, 22, 30, 14, 11),
-        "fused_d": (4, 22, 29, 13, 11), "remat_vgg": (5, 22, 35, 14, 11),
-        "remat_blocks": (5, 32, 30, 14, 11), "remat_both": (5, 32, 35, 14, 11),
-        "fused_d_remat_blocks": (4, 32, 29, 13, 11),
-        "all": (4, 32, 34, 13, 11),
+        "default": (5, 22, 30, 14, 11, 22, 22, 11, 11),
+        "canonical": (5, 22, 30, 14, 11, 22, 22, 11, 11),
+        "fused_d": (4, 22, 29, 13, 11, 22, 22, 11, 11),
+        "remat_vgg": (5, 22, 35, 14, 11, 22, 22, 11, 11),
+        "remat_blocks": (5, 32, 30, 14, 11, 32, 32, 11, 11),
+        "remat_both": (5, 32, 35, 14, 11, 32, 32, 11, 11),
+        "fused_d_remat_blocks": (4, 32, 29, 13, 11, 32, 32, 11, 11),
+        "all": (4, 32, 34, 13, 11, 32, 32, 11, 11),
     }.items()}
+
+
+def float32_launches(launches: dict) -> dict:
+    """`launches` of a bf16 step as a float32 step makes them: its batch
+    norms keep the literal order and launch no kernel."""
+    return dict(launches, **dict.fromkeys(BATCH_NORM_KERNELS, 0))
 
 
 def free_port() -> int:
