@@ -1349,6 +1349,7 @@ def drive_trainer_path(device, card: str, step_images_per_s: float) -> dict:
     over 2 batches of 32) and sweep grid after steps 2 and 4, the epoch-end
     checkpoint and grid; then a fresh Trainer resumes from the checkpoint
     and both take one more step on the same pinned batch."""
+    import copy
     import glob
     import importlib.util
     import os
@@ -1381,8 +1382,12 @@ def drive_trainer_path(device, card: str, step_images_per_s: float) -> dict:
 
     first = trainer(state)
     clock = Clock()
-    for name in ("validate", "inference", "save_checkpoint", "generate"):
+    for name in ("validate", "inference", "save_checkpoint"):
         setattr(first, name, clock.wrap(name, getattr(first, name)))
+    # validate() and the grid sample through the family: time a copy of it
+    # (the family object is shared by every Trainer of its model)
+    first.family = copy.copy(first.family)
+    first.family.sample = clock.wrap("generate", first.family.sample)
     fid_eval = first.fid_evaluator
     reduce_moments = fid_eval.reduce_moments
     fid_eval.moments = clock.wrap("inception", fid_eval.moments)

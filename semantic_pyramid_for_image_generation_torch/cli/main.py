@@ -156,20 +156,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_supported(args) -> None:
-    """Raise for flag values the port cannot run."""
-    if args.arch == "biggan-deep-256":
-        refused = [flag for flag, on in (
-            ("--multihost", args.multihost), ("--fsdp", args.fsdp > 1),
-            ("--fused_d", args.fused_d), ("--remat_vgg", args.remat_vgg),
-            ("--remat_blocks", args.remat_blocks)) if on]
-        if refused:
-            raise ValueError(f"--arch biggan-deep-256 trains on one process "
-                             f"without the SP-GAN's perf modes: "
-                             f"{', '.join(refused)}")
-        if not args.image_folder:
-            raise ValueError("--arch biggan-deep-256 reads its images from "
-                             "--image_folder (train/<class>/*, "
-                             "val/<class>/*)")
+    """Raise for flag values the port cannot run, the options that
+    `--arch`'s family refuses first (train/family.py)."""
+    from semantic_pyramid_for_image_generation_torch.train.family import (
+        family_of,
+    )
+
+    family_of(config_from_args(args), multihost=args.multihost,
+              fsdp=args.fsdp > 1, fused_discriminator=args.fused_d,
+              remat_vgg=args.remat_vgg, remat_blocks=args.remat_blocks)
+    if args.arch == "biggan-deep-256" and not args.image_folder:
+        raise ValueError("--arch biggan-deep-256 reads its images from "
+                         "--image_folder (train/<class>/*, val/<class>/*)")
     if args.fsdp > 1 and not args.multihost:
         raise ValueError(f"--fsdp {args.fsdp} shards the state over the "
                          "ranks of a --multihost launch (torchrun "
@@ -188,11 +186,13 @@ def check_supported(args) -> None:
 
 
 def config_from_args(args):
-    from semantic_pyramid_for_image_generation_torch.config import (
-        PyramidGANConfig,
-    )
+    """The config of `--arch`, from the flags."""
+    from semantic_pyramid_for_image_generation_torch import config
 
-    return PyramidGANConfig(
+    if args.arch == "biggan-deep-256":
+        return config.BigGANDeepConfig(ch=int(128 // args.channel_factor),
+                                       compute_dtype=args.dtype)
+    return config.PyramidGANConfig(
         channels_factor=args.channel_factor, compute_dtype=args.dtype,
         vgg_width_factor=args.vgg_width_factor,
         compat_projection=not (args.canonical_projection or args.fused_d),
@@ -214,36 +214,17 @@ class ClassFolderBatches:
                    "labels": labels.astype(np.int64)}
 
 
-def build_biggan_deep_trainer(args):
-    """`build_trainer` for `--arch biggan-deep-256`."""
-    from semantic_pyramid_for_image_generation_torch.config import (
-        BigGANDeepConfig,
-    )
+def class_folder_inputs(args, config, device):
+    """`--arch biggan-deep-256`'s loaders over `--image_folder`; the
+    Trainer draws the state from the seed."""
     from semantic_pyramid_for_image_generation_torch.data.image_folder import (
         ImageFolder,
         ImageFolderLoader,
     )
-    from semantic_pyramid_for_image_generation_torch.train.checkpoint import (
-        restore_checkpoint,
-    )
-    from semantic_pyramid_for_image_generation_torch.train.loop import Trainer
-    from semantic_pyramid_for_image_generation_torch.train.state import (
-        param_count,
-    )
-    from semantic_pyramid_for_image_generation_torch.utils.device import (
-        resolve_device,
-    )
-    from semantic_pyramid_for_image_generation_torch.utils.pt_interop import (
-        load_torch_file,
-    )
 
-    device = resolve_device(args.device)
-    config = BigGANDeepConfig(ch=int(128 // args.channel_factor),
-                              compute_dtype=args.dtype)
-    train = ImageFolder(os.path.join(args.image_folder, "train"),
-                        config.resolution, normalize=False)
-    val = ImageFolder(os.path.join(args.image_folder, "val"),
-                      config.resolution, normalize=False)
+    train, val = (ImageFolder(os.path.join(args.image_folder, split),
+                              config.resolution, normalize=False)
+                  for split in ("train", "val"))
     val.samples = val.samples[:args.fid_images]
     classes = max(len(train.class_to_idx), len(val.class_to_idx))
     if classes > config.num_classes:
@@ -253,44 +234,58 @@ def build_biggan_deep_trainer(args):
         ImageFolderLoader(ds, batch_size=rows, shuffle=shuffle,
                           random_flip=False, drop_last=shuffle,
                           num_workers=args.num_workers, seed=args.seed))
-    inception = None
-    if args.load_inception and os.path.exists(args.load_inception):
-        inception = load_torch_file(args.load_inception)
-    trainer = Trainer(
-        config, loader(train, args.batch_size * config.num_d_steps, True),
-        loader(val, 2 * args.batch_size, False), seed=args.seed,
-        save_data_path=args.save_data_path, device=device,
-        tensorboard=args.tensorboard, inception_state_dict=inception,
-        allow_random_fid=args.allow_random_fid,
-        fid_device_stats=args.fid_device_stats)
-    if args.load_checkpoint:
-        restore_checkpoint(args.load_checkpoint, trainer.state)
-        print(f"Restored checkpoint {args.load_checkpoint} "
-              f"(step {trainer.state.step})")
-    if args.auto_resume:
-        trainer.auto_resume(args.auto_resume)
-    print("Number of generator parameters",
-          param_count(trainer.state.generator))
-    print("Number of discriminator parameters",
-          param_count(trainer.state.discriminator))
-    return trainer
+    return (loader(train, args.batch_size * config.num_d_steps, True),
+            loader(val, 2 * args.batch_size, False), None, False)
 
 
-def build_trainer(args):
-    """Flags -> a fully wired Trainer (loaders, weight files, checkpoint
-    restore): everything main() does before train() / validate()."""
-    check_supported(args)
-    if args.arch == "biggan-deep-256":
-        return build_biggan_deep_trainer(args)
+def places365_inputs(args, config, device):
+    """The SP-GAN's Places365 loaders (each rank decodes its rows of every
+    global batch), and its state with the pretrained VGG where found."""
     from semantic_pyramid_for_image_generation_torch.data.places365 import (
         Places365,
         Places365Loader,
     )
     from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
+        rank,
+        world_size,
+    )
+    from semantic_pyramid_for_image_generation_torch.train.state import (
+        init_train_state,
+    )
+    from semantic_pyramid_for_image_generation_torch.utils.pt_interop import (
+        load_torch_file,
+        vgg16_state_dict_from_torch,
+    )
+
+    state = init_train_state(config, device, lr=args.lr, seed=args.seed)
+    found_vgg = bool(args.load_pretrained_vgg16
+                     and os.path.exists(args.load_pretrained_vgg16))
+    if found_vgg:
+        state.vgg.load_state_dict(vgg16_state_dict_from_torch(
+            load_torch_file(args.load_pretrained_vgg16)), strict=True)
+        print(f"Loaded pretrained VGG16 from {args.load_pretrained_vgg16}")
+    common = {"shuffle": True, "num_workers": args.num_workers,
+              "compact_feed": args.compact_feed, "num_shards": world_size(),
+              "shard_id": rank()}
+    train = Places365Loader(
+        Places365(args.path_to_places365, "train.txt", config),
+        batch_size=args.batch_size, drop_last=True, **common)
+    val = Places365Loader(
+        Places365(args.path_to_places365, "val.txt", config,
+                  max_length=args.fid_images, validation=True),
+        batch_size=2 * args.batch_size, drop_last=False, **common)
+    return train, val, state, found_vgg
+
+
+def build_trainer(args):
+    """Flags -> a fully wired Trainer (loaders, weight files, checkpoint
+    restore): everything main() does before train() / validate(). The
+    `--arch` values differ only in their config and `*_inputs`."""
+    check_supported(args)
+    from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
         check_fsdp,
         check_replicated,
         init_distributed,
-        rank,
         world_size,
     )
     from semantic_pyramid_for_image_generation_torch.train.checkpoint import (
@@ -298,7 +293,6 @@ def build_trainer(args):
     )
     from semantic_pyramid_for_image_generation_torch.train.loop import Trainer
     from semantic_pyramid_for_image_generation_torch.train.state import (
-        init_train_state,
         param_count,
     )
     from semantic_pyramid_for_image_generation_torch.utils.device import (
@@ -306,7 +300,6 @@ def build_trainer(args):
     )
     from semantic_pyramid_for_image_generation_torch.utils.pt_interop import (
         load_torch_file,
-        vgg16_state_dict_from_torch,
     )
 
     if args.multihost:
@@ -321,30 +314,12 @@ def build_trainer(args):
               f"{world} ranks)")
         args.batch_size = rounded
     config = config_from_args(args)
-    state = init_train_state(config, device, lr=args.lr, seed=args.seed)
-    found_vgg = bool(args.load_pretrained_vgg16
-                     and os.path.exists(args.load_pretrained_vgg16))
-    if found_vgg:
-        state.vgg.load_state_dict(vgg16_state_dict_from_torch(
-            load_torch_file(args.load_pretrained_vgg16)), strict=True)
-        print(f"Loaded pretrained VGG16 from {args.load_pretrained_vgg16}")
+    inputs = (class_folder_inputs if args.arch == "biggan-deep-256"
+              else places365_inputs)
+    train_loader, val_loader, state, found_vgg = inputs(args, config, device)
     inception = None
     if args.load_inception and os.path.exists(args.load_inception):
         inception = load_torch_file(args.load_inception)
-
-    # each rank decodes its rows of every global batch (parallel/mesh.py)
-    shards = {"num_shards": world, "shard_id": rank()}
-    train_loader = Places365Loader(
-        Places365(args.path_to_places365, "train.txt", config),
-        batch_size=args.batch_size, shuffle=True, drop_last=True,
-        num_workers=args.num_workers, compact_feed=args.compact_feed,
-        **shards)
-    val_loader = Places365Loader(
-        Places365(args.path_to_places365, "val.txt", config,
-                  max_length=args.fid_images, validation=True),
-        batch_size=2 * args.batch_size, shuffle=True, drop_last=False,
-        num_workers=args.num_workers, compact_feed=args.compact_feed,
-        **shards)
 
     trainer = Trainer(
         config, train_loader, val_loader,
@@ -367,10 +342,9 @@ def build_trainer(args):
     check_replicated(trainer.state, vgg_file_found=found_vgg,
                      inception_file_found=inception is not None)
 
-    print("Number of generator parameters",
-          param_count(trainer.state.generator))
-    print("Number of discriminator parameters",
-          param_count(trainer.state.discriminator))
+    for net in ("generator", "discriminator"):
+        print(f"Number of {net} parameters",
+              param_count(getattr(trainer.state, net)))
     return trainer
 
 

@@ -1,6 +1,7 @@
 """BigGAN-deep's training: the state, its seeded init, the train step with
-`num_d_steps` D updates per G update, the G EMA, checkpoints and the
-eval-mode sampler.
+`num_d_steps` D updates per G update, the G EMA, and the family the
+Trainer takes it by (`BIGGAN_DEEP`, train/family.py): checkpoints, the
+eval-mode sampler and the grid.
 
 The step is BigGAN-PyTorch's `train_fns.GAN_training_function` with one
 gradient accumulation: each D update runs G with no gradients on fresh
@@ -15,7 +16,7 @@ Adam; then the EMA (`utils.ema.update`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,10 +38,10 @@ from semantic_pyramid_for_image_generation_torch.utils.profiling import span
 from semantic_pyramid_for_image_generation_torch.utils.pt_interop import (
     _to_cpu,
     adam_state_dict_in_module_order,
+    load_torch_file,
 )
 
 Batch = Dict[str, torch.Tensor]  # images (B, H, W, 3), labels (B,) indices
-_UPDATE_COUNTS = {"d": 0, "g": 0}
 
 
 @dataclasses.dataclass
@@ -80,12 +81,6 @@ def init_state(config: BigGANDeepConfig, device: torch.device,
                            *make_optimizers(generator, discriminator))
 
 
-def update_counts() -> Dict[str, int]:
-    """How many D and G updates the train step has taken since the process
-    started: {"d": n, "g": m}."""
-    return dict(_UPDATE_COUNTS)
-
-
 def m11_images(images: torch.Tensor) -> torch.Tensor:
     """uint8 (B, H, W, 3) -> x / 127.5 - 1 in float32, as a loader's
     `Normalize(0.5, 0.5)` of [0, 1] pixels; float images (already in
@@ -93,14 +88,6 @@ def m11_images(images: torch.Tensor) -> torch.Tensor:
     if images.dtype == torch.uint8:
         images = images.float() / 127.5 - 1.0
     return images.permute(0, 3, 1, 2)
-
-
-def batch_to_device(batch: Mapping[str, Any], device: torch.device) -> Batch:
-    """A host batch {images (B, H, W, 3), labels (B,)} as tensors on
-    `device`."""
-    with span("loop.to_device"):
-        return {k: torch.as_tensor(np.asarray(batch[k])).to(device)
-                for k in ("images", "labels")}
 
 
 def ema_decay(config: BigGANDeepConfig, step: int) -> float:
@@ -192,7 +179,6 @@ def make_train_step() -> Callable[..., Tuple[BigGANDeepState,
                     (loss_d_real + loss_d_fake).backward()
                 with span("step.d_phase.adam"):
                     state.d_optimizer.step()
-                _UPDATE_COUNTS["d"] += 1
             with span("step.g_phase.forward"):
                 z, y = _draw(rng, rows, cfg, device)
                 loss_g = hinge_generator_loss(discriminator(generator(z, y),
@@ -202,7 +188,6 @@ def make_train_step() -> Callable[..., Tuple[BigGANDeepState,
                 loss_g.backward(inputs=list(generator.parameters()))
             with span("step.g_phase.adam"):
                 state.g_optimizer.step()
-            _UPDATE_COUNTS["g"] += 1
         with span("step.ema"):
             update_ema(state, ema_decay(cfg, state.step))
         state.step += 1
@@ -213,37 +198,73 @@ def make_train_step() -> Callable[..., Tuple[BigGANDeepState,
     return train_step
 
 
-def make_generate_fn(generator: BigGANDeepGenerator) -> Callable:
-    """Eval-mode sampler `(z, y) -> (B, H, W, 3)` in the compute dtype, under
-    `torch.inference_mode`; `generator` (G_ema) must be in eval mode."""
-    if generator.training:
-        raise ValueError("make_generate_fn needs an eval-mode generator")
+class BigGANDeepFamily:
+    """BigGAN-deep as the Trainer, its checkpoints and the CLI take it
+    (train/family.py): `validate()` scores and `inference()` draws G_ema's
+    samples, at the config's learning rates."""
 
-    def generate(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    refusal = ("BigGAN-deep trains on one process without the SP-GAN's "
+               "perf modes")
+    refuses = ("multihost", "fsdp", "fused_discriminator", "remat_vgg",
+               "remat_blocks")
+
+    def init_state(self, config, device, seed, lr) -> BigGANDeepState:
+        return init_state(config, device, seed)
+
+    def make_step(self, **options) -> Callable:
+        return make_train_step()
+
+    def hyperparameters(self, lr, w_rec, w_div) -> Dict[str, str]:
+        return {}
+
+    def progress(self, fid: float, host: Dict[str, float]) -> str:
+        return "FID={:.4f}, Loss G={:.4f}, Loss D={:.4f}".format(
+            fid, host["loss_generator"], host["loss_discriminator_real"]
+            + host["loss_discriminator_fake"])
+
+    def latent_dim(self, config: BigGANDeepConfig) -> int:
+        return config.dim_z
+
+    def sample(self, state: BigGANDeepState, batch: Batch,
+               noise: torch.Tensor) -> torch.Tensor:
+        """G_ema's fakes (B, H, W, 3) for the batch's labels, in the compute
+        dtype, under `torch.inference_mode`; G_ema must be in eval mode."""
+        if state.generator_ema.training:
+            raise ValueError("sampling needs an eval-mode G_ema")
         with torch.inference_mode(), exact_float32():
-            return generator(z.float(), y.long()).permute(0, 2, 3, 1)
+            return state.generator_ema(noise.float(), batch["labels"].long()
+                                       ).permute(0, 2, 3, 1)
 
-    return generate
+    def grid(self, config: BigGANDeepConfig, state: BigGANDeepState,
+             images: np.ndarray, labels: np.ndarray, rng: torch.Generator,
+             device: torch.device):
+        """G_ema's samples, a row per label, a column per latent: as many
+        columns as rows. Returns the grid and its row length."""
+        n = labels.shape[0]
+        y = torch.as_tensor(np.repeat(labels, n)).to(device)
+        z = torch.randn((n * n, config.dim_z), generator=rng, device=device)
+        return self.sample(state, {"labels": y}, z).float().cpu().numpy(), n
+
+    def checkpoint(self, state: BigGANDeepState) -> Dict[str, Any]:
+        """G, D and G_ema state dicts and both Adam state dicts on the CPU,
+        and the step."""
+        return {**{net: _to_cpu(getattr(state, net).state_dict())
+                   for net in ("generator", "discriminator", "generator_ema")},
+                "generator_optimizer": adam_state_dict_in_module_order(
+                    state.g_optimizer, state.generator),
+                "discriminator_optimizer": adam_state_dict_in_module_order(
+                    state.d_optimizer, state.discriminator),
+                "step": int(state.step)}
+
+    def restore(self, path: str, state: BigGANDeepState) -> BigGANDeepState:
+        """`checkpoint`'s file into `state` in place (strict keys)."""
+        checkpoint = load_torch_file(path)
+        for net in ("generator", "discriminator", "generator_ema"):
+            getattr(state, net).load_state_dict(checkpoint[net], strict=True)
+        state.g_optimizer.load_state_dict(checkpoint["generator_optimizer"])
+        state.d_optimizer.load_state_dict(checkpoint["discriminator_optimizer"])
+        state.step = int(checkpoint["step"])
+        return state
 
 
-def checkpoint_dict(state: BigGANDeepState) -> Dict[str, Any]:
-    """G, D and G_ema state dicts and both Adam state dicts on the CPU, and
-    the step."""
-    return {**{net: _to_cpu(getattr(state, net).state_dict())
-               for net in ("generator", "discriminator", "generator_ema")},
-            "generator_optimizer": adam_state_dict_in_module_order(
-                state.g_optimizer, state.generator),
-            "discriminator_optimizer": adam_state_dict_in_module_order(
-                state.d_optimizer, state.discriminator),
-            "step": int(state.step)}
-
-
-def load_checkpoint_dict(state: BigGANDeepState,
-                         checkpoint: Mapping[str, Any]) -> BigGANDeepState:
-    """`checkpoint_dict`'s content into `state` in place (strict keys)."""
-    for net in ("generator", "discriminator", "generator_ema"):
-        getattr(state, net).load_state_dict(checkpoint[net], strict=True)
-    state.g_optimizer.load_state_dict(checkpoint["generator_optimizer"])
-    state.d_optimizer.load_state_dict(checkpoint["discriminator_optimizer"])
-    state.step = int(checkpoint["step"])
-    return state
+BIGGAN_DEEP = BigGANDeepFamily()

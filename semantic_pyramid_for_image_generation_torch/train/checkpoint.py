@@ -1,6 +1,6 @@
 """Checkpoint and resume, counterpart of the JAX package's train/checkpoint.py.
 
-The port's one format is the reference `.pt` layout
+The SP-GAN's format is the reference `.pt` layout
 (`utils/pt_interop.py::reference_gan_checkpoint`): G and D state dicts
 (parameters, spectral u/v, batch-norm statistics) and both torch Adam state
 dicts, plus the step. The JAX package reads these files with
@@ -8,40 +8,27 @@ dicts, plus the step. The JAX package reads these files with
 package's `.pt` files (`restore_checkpoint`). The frozen VGG is not saved:
 it comes from its own file (`--load_pretrained_vgg16`) or the seed.
 
-A BigGAN-deep state (train/biggan_deep.py) is saved under the same names in
-the port's own layout: G, D and G_ema state dicts, both Adam state dicts as
-torch writes them, and the step (`biggan_deep.checkpoint_dict`).
+What a file holds is the family's of the state's model (train/family.py:
+`checkpoint`, `restore`); the files' names and cadence are this module's.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
 from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
-    check_replicated,
     is_sharded,
-    load_state_dict_,
-    tree_digest,
 )
-from semantic_pyramid_for_image_generation_torch.train import biggan_deep
-from semantic_pyramid_for_image_generation_torch.train.state import (
-    TrainState,
-    import_adam_moments,
-)
-from semantic_pyramid_for_image_generation_torch.utils.pt_interop import (
-    load_reference_gan_checkpoint,
-    load_torch_file,
-    reference_gan_checkpoint,
-)
+from semantic_pyramid_for_image_generation_torch.train.family import family_of
 
 _NAME = re.compile(r"^checkpoint_(\d+)\.pt$")
 
 
-def save_checkpoint(directory: str, state: TrainState,
+def save_checkpoint(directory: str, state: Any,
                     step: Optional[int] = None, write: bool = True
                     ) -> Optional[str]:
     """Write `<directory>/checkpoint_<step:03d>.pt` (the step defaults to
@@ -52,9 +39,7 @@ def save_checkpoint(directory: str, state: TrainState,
     step = int(state.step) if step is None else step
     if not (write or is_sharded(state.generator)):
         return None
-    checkpoint = (biggan_deep.checkpoint_dict(state)
-                  if isinstance(state, biggan_deep.BigGANDeepState)
-                  else reference_gan_checkpoint(state))
+    checkpoint = family_of(state.generator.config).checkpoint(state)
     if not write:
         return None
     os.makedirs(directory, exist_ok=True)
@@ -63,14 +48,13 @@ def save_checkpoint(directory: str, state: TrainState,
     return path
 
 
-def restore_checkpoint(path: str, state: TrainState) -> TrainState:
-    """Load a reference-layout `.pt` into `state` in place (strict keys; Adam
-    moments mapped by parameter key) and return it. The step is the file's
-    `step`, else its Adam step count (the reference layout has no step).
-    A sharded state takes its part of each whole tensor of the file, at any
-    fsdp (parallel/mesh.py::load_state_dict_); every rank reads the file
-    from its own disk, and the ranks raise unless they read the same one
-    (each would hold its part of another state)."""
+def restore_checkpoint(path: str, state: Any) -> Any:
+    """Load a `.pt` into `state` in place (strict keys) and return it. The
+    SP-GAN's Adam moments map by parameter key, and its step is the file's
+    `step`, else its Adam step count (the reference layout has no step). A
+    sharded state takes its part of each whole tensor of the file, at any
+    fsdp (parallel/mesh.py::load_state_dict_); the ranks raise unless they
+    read the same file, each from its own disk."""
     if not path.endswith(".pt"):
         raise ValueError(
             f"{path}: the port reads reference-layout .pt checkpoints only; "
@@ -78,21 +62,7 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
             "cli/convert_checkpoint.py orbax-to-pt (orbax is a JAX "
             "library; the port's cli/convert_checkpoint.py has no orbax "
             "modes)")
-    if isinstance(state, biggan_deep.BigGANDeepState):
-        return biggan_deep.load_checkpoint_dict(state, load_torch_file(path))
-    ckpt = load_reference_gan_checkpoint(path)
-    if is_sharded(state.generator):
-        check_replicated(file=tree_digest(ckpt))
-    load_state_dict_(state.generator, ckpt["generator"])
-    load_state_dict_(state.discriminator, ckpt["discriminator"])
-    adam_step = None
-    for optimizer, net in ((state.g_optimizer, "generator"),
-                           (state.d_optimizer, "discriminator")):
-        adam_step = import_adam_moments(
-            optimizer, getattr(state, net), ckpt[f"{net}_optimizer"],
-            ckpt[net]) or adam_step
-    state.step = ckpt.get("step", adam_step or 0)
-    return state
+    return family_of(state.generator.config).restore(path, state)
 
 
 def latest_checkpoint(directory: str) -> Optional[str]:

@@ -29,17 +29,13 @@ collective, and a rank that gets no row of a ragged validation batch
 generates a padded row it does not count (data/places365.py::shard_of);
 each checkpoint is gathered whole on every rank and written by rank 0.
 
-A Trainer built on a `BigGANDeepConfig` trains BigGAN-deep
-(train/biggan_deep.py) with the same cadence, metric flush and
-checkpoints: its state adds G's EMA, which `validate()` (the FID of G_ema's
-samples for the validation labels) and `inference()` (a 7x7 grid of G_ema's
-samples) sample. It trains on one process; `fsdp`, the perf modes and the
-SP-GAN-only methods (`generate`, `import_adam_moments`) refuse it.
+What differs between the models a Trainer trains is its family's
+(train/family.py), looked up once from the config's type; the cadence,
+the metric flush, the latents' seeding and the files are this module's.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import Any, Dict, Iterable, Mapping, Optional
 
@@ -50,15 +46,10 @@ from semantic_pyramid_for_image_generation_torch.config import (
     DEFAULT_LR,
     DEFAULT_W_DIV,
     DEFAULT_W_REC,
-    BigGANDeepConfig,
-    PyramidGANConfig,
 )
-from semantic_pyramid_for_image_generation_torch.data.masks import MaskSchedule
 from semantic_pyramid_for_image_generation_torch.eval.fid import FIDEvaluator
 from semantic_pyramid_for_image_generation_torch.eval.grid import (
     save_inference_grid,
-    sweep_masks,
-    sweep_stack,
 )
 from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
     barrier,
@@ -70,22 +61,15 @@ from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
     shard_state,
     world_size,
 )
-from semantic_pyramid_for_image_generation_torch.train import biggan_deep
 from semantic_pyramid_for_image_generation_torch.train.checkpoint import (
     latest_checkpoint,
     restore_checkpoint,
     save_checkpoint,
 )
-from semantic_pyramid_for_image_generation_torch.train.state import (
-    TrainState,
-    import_adam_moments,
-    init_train_state,
-    param_count,
-)
+from semantic_pyramid_for_image_generation_torch.train.family import family_of
+from semantic_pyramid_for_image_generation_torch.train.state import param_count
 from semantic_pyramid_for_image_generation_torch.train.step import (
     batch_to_device,
-    make_generate_fn,
-    make_train_step,
 )
 from semantic_pyramid_for_image_generation_torch.utils.device import (
     resolve_device,
@@ -95,8 +79,6 @@ from semantic_pyramid_for_image_generation_torch.utils.logger import (
     make_run_dirs,
 )
 from semantic_pyramid_for_image_generation_torch.utils.profiling import span
-
-GRID_LEVELS = 7
 
 
 def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
@@ -111,7 +93,7 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
 class Trainer:
     def __init__(
         self,
-        config: PyramidGANConfig | BigGANDeepConfig,
+        config: Any,
         training_dataset: Iterable[Dict[str, Any]],
         validation_dataset: Optional[Iterable[Dict[str, Any]]] = None,
         lr: float = DEFAULT_LR,
@@ -121,7 +103,7 @@ class Trainer:
         device: torch.device | str = "cuda",
         tensorboard: bool = False,
         seed: int = 0,
-        state: Optional[TrainState] = None,
+        state: Optional[Any] = None,
         inception_state_dict: Optional[Mapping[str, Any]] = None,
         allow_random_fid: bool = False,
         fid_device_stats: bool = False,
@@ -131,7 +113,10 @@ class Trainer:
         fused_discriminator: bool = False,
         fsdp: int = 1,
     ) -> None:
-        """`state` defaults to a random init from `seed` on `device`.
+        """`config`'s type picks the family (train/family.py), which raises
+        ValueError for the options it refuses (more than one rank counts as
+        `multihost`). `state` defaults to the family's random init from
+        `seed` on `device`.
         `write_grids=False` keeps each sweep grid as the array `last_grid`
         and writes no PNG (PIL is imported only to write one).
         `remat_vgg` and `fused_discriminator` are the train step's perf
@@ -140,43 +125,28 @@ class Trainer:
         the ranks (parallel/mesh.py::shard_state) once rank 0's is
         broadcast; it raises ValueError unless it divides the ranks. Pass
         an unsharded `state` whose optimizers hold nothing yet, and restore
-        checkpoints after. On a `BigGANDeepConfig` the state is a
-        `train/biggan_deep.py::BigGANDeepState` (random from `seed` by
-        default), trained at the config's learning rates (`lr`, `w_rec`
-        and `w_div` are the SP-GAN's); `fsdp` > 1, `remat_vgg`,
-        `fused_discriminator` and more than one rank raise ValueError."""
+        checkpoints after. `lr`, `w_rec` and `w_div` go to the family's
+        init, step and logged hyperparameters."""
         self.device = resolve_device(device)
         self.config = config
         self.training_dataset = training_dataset
         self.validation_dataset = validation_dataset
         self.compat_inference_indices = compat_inference_indices
         self.write_grids = write_grids
-        self.biggan = isinstance(config, BigGANDeepConfig)
-        if self.biggan:
-            refused = [name for name, on in (
-                ("fsdp", fsdp > 1), ("remat_vgg", remat_vgg),
-                ("fused_discriminator", fused_discriminator),
-                ("data parallelism", world_size() > 1)) if on]
-            if refused:
-                raise ValueError(f"BigGAN-deep trains on one process without "
-                                 f"the SP-GAN's perf modes; refused: "
-                                 f"{', '.join(refused)}")
-            self.state = state if state is not None else (
-                biggan_deep.init_state(config, self.device, seed))
-            self._batch_to_device = biggan_deep.batch_to_device
-        else:
-            self.state = state if state is not None else init_train_state(
-                config, self.device, lr=lr, seed=seed)
-            self._batch_to_device = batch_to_device
+        options = {"remat_vgg": remat_vgg,
+                   "fused_discriminator": fused_discriminator}
+        self.family = family_of(config, multihost=world_size() > 1,
+                                fsdp=fsdp > 1, **options)
+        self.state = state if state is not None else self.family.init_state(
+            config, self.device, seed=seed, lr=lr)
         broadcast_state(self.state)
         self.mesh = None
         if fsdp > 1:
             self.mesh = make_mesh(fsdp, self.device.type)
             shard_state(self.state, self.mesh)
         self.is_lead = rank() == 0
-        self.step_fn = biggan_deep.make_train_step() if self.biggan else (
-            make_train_step(w_rec=w_rec, w_div=w_div, remat_vgg=remat_vgg,
-                            fused_discriminator=fused_discriminator))
+        self.step_fn = self.family.make_step(w_rec=w_rec, w_div=w_div,
+                                             **options)
         self.fid_evaluator = FIDEvaluator(
             inception_state_dict, self.device, allow_random=allow_random_fid,
             device_statistics=fid_device_stats)
@@ -195,10 +165,8 @@ class Trainer:
             "generator_params": str(param_count(self.state.generator)),
             "discriminator_params": str(param_count(self.state.discriminator)),
             "config": str(config),
+            **self.family.hyperparameters(lr, w_rec, w_div),
         })
-        if not self.biggan:  # BigGAN-deep's rates are in its config
-            self.logger.hyperparameter.update({
-                "lr": str(lr), "w_rec": str(w_rec), "w_div": str(w_div)})
 
     # ------------------------------------------------------------------
     def _flush_metrics(self, pending) -> Optional[Dict[str, float]]:
@@ -225,7 +193,7 @@ class Trainer:
         device."""
         rng = step_generator(self.seed + 1, int(self.state.step), self.device)
         self.state, metrics = self.step_fn(
-            self.state, self._batch_to_device(batch, self.device), rng)
+            self.state, batch_to_device(batch, self.device), rng)
         return metrics
 
     def train(
@@ -268,7 +236,7 @@ class Trainer:
                 if len(pending) >= max(1, log_every):
                     host = self._flush_metrics(pending)
                 if bar is not None and host is not None:
-                    bar.set_description(self._progress(fid, host))
+                    bar.set_description(self.family.progress(fid, host))
                 if (self.validation_dataset is not None
                         and self.samples_seen >= next_validation):
                     next_validation += validate_after_n_iterations
@@ -287,23 +255,13 @@ class Trainer:
         if bar is not None:
             bar.close()
 
-    def _refuse_biggan(self, what: str) -> None:
-        if self.biggan:
-            raise ValueError(f"Trainer.{what} is the SP-GAN's; BigGAN-deep "
-                             "samples G_ema through validate() and "
-                             "inference()")
-
-    def _progress(self, fid: float, host: Dict[str, float]) -> str:
-        loss_d = host["loss_discriminator_real"] + host[
-            "loss_discriminator_fake"]
-        if self.biggan:
-            return "FID={:.4f}, Loss G={:.4f}, Loss D={:.4f}".format(
-                fid, host["loss_generator"], loss_d)
-        return ("FID={:.4f}, Loss Div={:.4f}, Loss Rec={:.4f}, "
-                "Loss G={:.4f}, Loss D={:.4f}".format(
-                    fid, host["loss_generator_diversity"],
-                    host["loss_generator_semantic_reconstruction"],
-                    host["loss_generator"], loss_d))
+    def _sp_gan_only(self, what: str):
+        """The family's `what`, which only the SP-GAN's offers."""
+        method = getattr(self.family, what, None)
+        if method is None:
+            raise ValueError(f"Trainer.{what} is the SP-GAN's; this model "
+                             "samples through validate() and inference()")
+        return method
 
     def _save_metrics(self) -> None:
         if self.is_lead:
@@ -322,11 +280,7 @@ class Trainer:
         """Adopt the Adam moments of a loaded reference checkpoint
         (utils/pt_interop.py::load_reference_gan_checkpoint) without its
         weights, mapped by parameter key."""
-        self._refuse_biggan("import_adam_moments")
-        for net in ("generator", "discriminator"):
-            optimizer = getattr(self.state, f"{net[0]}_optimizer")
-            import_adam_moments(optimizer, getattr(self.state, net),
-                                checkpoint[f"{net}_optimizer"], checkpoint[net])
+        self._sp_gan_only("import_adam_moments")(self.state, checkpoint)
 
     def auto_resume(self, models_dir: Optional[str] = None) -> bool:
         """Restore the newest checkpoint under `models_dir` (default: this
@@ -356,38 +310,26 @@ class Trainer:
             metrics["loss_generator"].cpu()
 
     # ------------------------------------------------------------------
-    @contextlib.contextmanager
-    def _eval_mode(self):
-        generator = self.state.generator
-        training = generator.training
-        generator.eval()
-        try:
-            yield
-        finally:
-            generator.train(training)
-
     def _latents(self, rng: torch.Generator, n: int,
                  rows: Optional[Any] = None) -> torch.Tensor:
         """This rank's rows of the latents drawn from `rng` for its global
         batch (`global_rows`): n ranks draw what one rank draws."""
         start, stop, total = global_rows(n, rows)
-        return torch.randn((total, self.config.latent_dim), generator=rng,
-                           device=self.device)[start:stop]
+        return torch.randn((total, self.family.latent_dim(self.config)),
+                           generator=rng, device=self.device)[start:stop]
 
     def generate(self, batch: Mapping[str, Any],
                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Eval-mode fakes (B, H, W, 3) for a device batch; the latents are
         drawn from the Trainer's eval generator unless given."""
-        self._refuse_biggan("generate")
+        generate = self._sp_gan_only("generate")
         if noise is None:
             noise = self._latents(self.rng, batch["images"].shape[0])
-        with self._eval_mode():
-            return make_generate_fn(self.state.generator, self.state.vgg)(
-                batch["images"], batch["masks"], batch["labels"], noise)
+        return generate(self.state, batch, noise)
 
     def validate(self) -> float:
-        """FID of fresh fakes against the validation set, batch by batch
-        (of G_ema's samples for the batches' labels on BigGAN-deep).
+        """FID of the family's fresh fakes against the validation set, batch
+        by batch.
         One draw from the eval generator seeds this validation's latents (as
         the JAX package splits its key once per validation), so every rank
         draws the same latents whatever rows it holds, and a rank that gets
@@ -396,8 +338,6 @@ class Trainer:
         seed = torch.randint(2 ** 62, (1,), generator=self.rng,
                              device=self.device)
         rng = torch.Generator(self.device).manual_seed(int(seed))
-        if self.biggan:
-            return self._validate_biggan(rng)
 
         def batches():
             for b in self.validation_dataset:
@@ -406,43 +346,8 @@ class Trainer:
                     rng, batch["images"].shape[0], b.get("shard_rows"))
                 yield batch
 
-        return self.fid_evaluator.fid(
-            batches(), lambda batch: self.generate(batch, batch["noise"]))
-
-    def _validate_biggan(self, rng: torch.Generator) -> float:
-        generate = biggan_deep.make_generate_fn(self.state.generator_ema)
-
-        def batches():
-            for b in self.validation_dataset:
-                batch = self._batch_to_device(b, self.device)
-                batch["noise"] = torch.randn(
-                    (batch["images"].shape[0], self.config.dim_z),
-                    generator=rng, device=self.device)
-                yield batch
-
-        return self.fid_evaluator.fid(
-            batches(), lambda batch: generate(batch["noise"],
-                                              batch["labels"]))
-
-    def _inference_biggan(self, num_images: int) -> Optional[str]:
-        """`num_images` rows of G_ema's samples, a row per class of the
-        first validation batch's first labels, a column per latent drawn
-        from the eval generator."""
-        if self._inference_batch is None:
-            self._inference_batch = next(iter(self.validation_dataset))
-        labels = np.resize(np.asarray(self._inference_batch["labels"]),
-                           num_images)
-        y = torch.as_tensor(np.repeat(labels, num_images)).to(self.device)
-        z = torch.randn((num_images * num_images, self.config.dim_z),
-                        generator=self.rng, device=self.device)
-        fakes = biggan_deep.make_generate_fn(self.state.generator_ema)(z, y)
-        self.last_grid = fakes.float().cpu().numpy()
-        if not (self.write_grids and self.is_lead):
-            return None
-        path = os.path.join(self.paths["plots"],
-                            f"predictions_{self.samples_seen}.png")
-        save_inference_grid(self.last_grid, path, nrow=num_images)
-        return path
+        return self.fid_evaluator.fid(batches(), lambda batch: (
+            self.family.sample(self.state, batch, batch["noise"])))
 
     def _draw_inference_samples(self, num_images: int):
         """Seeded random draw of `num_images` distinct validation samples,
@@ -479,37 +384,20 @@ class Trainer:
                 np.asarray(batch["labels"][:num_images]))
 
     def inference(self, num_images: int = 7) -> Optional[str]:
-        """The 7x7 mask-level sweep (on BigGAN-deep, `_inference_biggan`'s
-        grid of G_ema's samples): rows are validation images, columns pin
-        the conditioning at each pyramid level. All levels ride ONE generate
-        of levels * num_images rows (images and labels tiled level-major),
-        with the latents drawn level by level, as seven generates of
-        num_images rows would draw them. The grid stays in `last_grid`; the
-        PNG path is returned (None with write_grids=False, and on every rank
-        but rank 0, which alone writes it)."""
+        """The family's grid (the SP-GAN's 7x7 mask-level sweep) of
+        `num_images` validation samples, repeated where there are fewer, on
+        latents from the eval generator. The grid stays in `last_grid`; the
+        PNG path is returned (None with write_grids=False, and on every
+        rank but rank 0, which alone writes it)."""
         if self.validation_dataset is None:
             return None
-        if self.biggan:
-            return self._inference_biggan(num_images)
-        images, labels = self._draw_inference_samples(num_images)
-        if images.shape[0] < num_images:
-            reps = -(-num_images // images.shape[0])
-            images = np.tile(images, (reps, 1, 1, 1))[:num_images]
-            labels = np.tile(labels, (reps, 1))[:num_images]
-        batch = batch_to_device({
-            "images": np.tile(images, (GRID_LEVELS, 1, 1, 1)),
-            "labels": np.tile(labels, (GRID_LEVELS, 1)),
-            "masks": sweep_masks(MaskSchedule(self.config), num_images,
-                                 GRID_LEVELS)}, self.device)
-        noise = torch.cat([
-            torch.randn((num_images, self.config.latent_dim),
-                        generator=self.rng, device=self.device)
-            for _ in range(GRID_LEVELS)])
-        fakes = self.generate(batch, noise).float().cpu().numpy()
-        self.last_grid = sweep_stack(fakes, num_images)
+        images, labels = (np.resize(a, (num_images,) + a.shape[1:])
+                          for a in self._draw_inference_samples(num_images))
+        self.last_grid, nrow = self.family.grid(
+            self.config, self.state, images, labels, self.rng, self.device)
         if not (self.write_grids and self.is_lead):
             return None
         path = os.path.join(self.paths["plots"],
                             f"predictions_{self.samples_seen}.png")
-        save_inference_grid(self.last_grid, path)
+        save_inference_grid(self.last_grid, path, nrow=nrow)
         return path

@@ -1,4 +1,5 @@
-"""The fused G/D train step and the eval-mode generate function.
+"""The fused G/D train step, the eval-mode generate function and the
+SP-GAN's family (`SP_GAN`, train/family.py).
 
 Counterpart of the JAX package's train/step.py: `ensure_m11_images`,
 `make_train_step` and `make_generate_fn` (its body, `generate_nhwc`).
@@ -17,6 +18,11 @@ from semantic_pyramid_for_image_generation_torch.config import (
     DEFAULT_W_DIV,
     DEFAULT_W_REC,
 )
+from semantic_pyramid_for_image_generation_torch.data.masks import MaskSchedule
+from semantic_pyramid_for_image_generation_torch.eval.grid import (
+    sweep_masks,
+    sweep_stack,
+)
 from semantic_pyramid_for_image_generation_torch.models.generator import (
     Generator,
 )
@@ -26,9 +32,12 @@ from semantic_pyramid_for_image_generation_torch.models.layers import (
 from semantic_pyramid_for_image_generation_torch.models.vgg16 import VGG16
 from semantic_pyramid_for_image_generation_torch.parallel.mesh import (
     all_reduce_gradients,
+    check_replicated,
     global_rows,
     is_sharded,
+    load_state_dict_,
     sum_metrics,
+    tree_digest,
 )
 from semantic_pyramid_for_image_generation_torch.train.losses import (
     diversity_loss,
@@ -36,13 +45,22 @@ from semantic_pyramid_for_image_generation_torch.train.losses import (
     lsgan_generator_loss,
     semantic_reconstruction_loss,
 )
-from semantic_pyramid_for_image_generation_torch.train.state import TrainState
+from semantic_pyramid_for_image_generation_torch.train.state import (
+    TrainState,
+    import_adam_moments,
+    init_train_state,
+)
 from semantic_pyramid_for_image_generation_torch.utils.device import (
     exact_float32,
 )
 from semantic_pyramid_for_image_generation_torch.utils.profiling import span
+from semantic_pyramid_for_image_generation_torch.utils.pt_interop import (
+    load_reference_gan_checkpoint,
+    reference_gan_checkpoint,
+)
 
 Batch = Dict[str, Any]  # images (B,H,W,3), labels (B,classes), masks: 7-tuple
+GRID_LEVELS = 7
 
 
 def ensure_m11_images(images: torch.Tensor) -> torch.Tensor:
@@ -69,14 +87,15 @@ def _float_masks(masks: Sequence[torch.Tensor]) -> list:
 
 def batch_to_device(batch: Mapping[str, Any], device: torch.device) -> Batch:
     """A numpy batch (data/synthetic.py, or the same keys from a loader) as
-    tensors on `device`; the masks stay a tuple. A sharded loader's
-    host-side `shard_rows` stays behind."""
+    tensors on `device`, the masks (where the batch has them) a tuple. A
+    sharded loader's host-side `shard_rows` stays behind."""
     def put(a):
         return torch.as_tensor(np.asarray(a)).to(device)
     with span("loop.to_device"):
         out = {k: put(v) for k, v in batch.items()
                if k not in ("masks", "shard_rows")}
-        out["masks"] = tuple(put(m) for m in batch["masks"])
+        if "masks" in batch:
+            out["masks"] = tuple(put(m) for m in batch["masks"])
     return out
 
 
@@ -308,3 +327,85 @@ def generate_nhwc(generator: Generator, vgg: VGG16, images: torch.Tensor,
     fakes = generator(noise.float(), features, _float_masks(masks),
                       labels.float())
     return fakes.permute(0, 2, 3, 1)
+
+
+class SPGANFamily:
+    """The Semantic Pyramid GAN as the Trainer takes it (train/family.py):
+    the reference `.pt` layout and the mask-level sweep grid; it refuses no
+    option, and alone offers `generate` and `import_adam_moments`."""
+
+    refusal, refuses = "", ()
+
+    init_state = staticmethod(init_train_state)
+    make_step = staticmethod(make_train_step)
+    checkpoint = staticmethod(reference_gan_checkpoint)
+
+    def hyperparameters(self, lr, w_rec, w_div) -> Dict[str, str]:
+        return {"lr": str(lr), "w_rec": str(w_rec), "w_div": str(w_div)}
+
+    def progress(self, fid: float, host: Dict[str, float]) -> str:
+        return ("FID={:.4f}, Loss Div={:.4f}, Loss Rec={:.4f}, "
+                "Loss G={:.4f}, Loss D={:.4f}".format(
+                    fid, host["loss_generator_diversity"],
+                    host["loss_generator_semantic_reconstruction"],
+                    host["loss_generator"], host["loss_discriminator_real"]
+                    + host["loss_discriminator_fake"]))
+
+    def latent_dim(self, config) -> int:
+        return config.latent_dim
+
+    def sample(self, state: TrainState, batch: Batch,
+               noise: torch.Tensor) -> torch.Tensor:
+        """Eval-mode fakes (B, H, W, 3) of a device batch; G's mode is
+        restored after."""
+        training = state.generator.training
+        state.generator.eval()
+        try:
+            return make_generate_fn(state.generator, state.vgg)(
+                batch["images"], batch["masks"], batch["labels"], noise)
+        finally:
+            state.generator.train(training)
+
+    generate = sample
+
+    def grid(self, config, state: TrainState, images: np.ndarray,
+             labels: np.ndarray, rng: torch.Generator, device: torch.device):
+        """The mask-level sweep, a row per image, a column per pyramid level
+        the conditioning is pinned at: ONE generate of levels * rows rows
+        (tiled level-major), the latents drawn level by level."""
+        n = images.shape[0]
+        batch = batch_to_device({
+            "images": np.tile(images, (GRID_LEVELS, 1, 1, 1)),
+            "labels": np.tile(labels, (GRID_LEVELS, 1)),
+            "masks": sweep_masks(MaskSchedule(config), n, GRID_LEVELS)},
+            device)
+        noise = torch.cat([
+            torch.randn((n, config.latent_dim), generator=rng, device=device)
+            for _ in range(GRID_LEVELS)])
+        fakes = self.sample(state, batch, noise).float().cpu().numpy()
+        return sweep_stack(fakes, n), GRID_LEVELS
+
+    def restore(self, path: str, state: TrainState) -> TrainState:
+        """A reference-layout `.pt` into `state` (restore_checkpoint)."""
+        ckpt = load_reference_gan_checkpoint(path)
+        if is_sharded(state.generator):
+            check_replicated(file=tree_digest(ckpt))
+        load_state_dict_(state.generator, ckpt["generator"])
+        load_state_dict_(state.discriminator, ckpt["discriminator"])
+        adam_step = self.import_adam_moments(state, ckpt)
+        state.step = ckpt.get("step", adam_step or 0)
+        return state
+
+    def import_adam_moments(self, state: TrainState,
+                            checkpoint: Mapping[str, Any]) -> Optional[int]:
+        """Both nets' Adam moments of a loaded reference checkpoint, by
+        parameter key; returns its Adam step count (None where empty)."""
+        adam_step = None
+        for net in ("generator", "discriminator"):
+            adam_step = import_adam_moments(
+                getattr(state, f"{net[0]}_optimizer"), getattr(state, net),
+                checkpoint[f"{net}_optimizer"], checkpoint[net]) or adam_step
+        return adam_step
+
+
+SP_GAN = SPGANFamily()

@@ -20,9 +20,11 @@ Every tolerance stands beside its reason. Two CPU effects set them:
     whose reference gradient is under LEAF_FLOOR of the median leaf's are
     left out of the gradient and change checks.
 
-Also: the 2:1 update counter, a checkpoint save -> restore -> step equal to
-an uninterrupted run bitwise, the bfloat16 program inside a band of the
-float32 reference and outside the float32 tolerances, the SP-GAN's
+Also: two D updates per G update (the Adams' step counts), a checkpoint
+save -> auto_resume -> step equal to an uninterrupted run bitwise (for the
+SP-GAN's family too), the options BigGAN-deep refuses raised alike by the
+CLI and the Trainer from its family's one list, the bfloat16 program
+inside a band of the float32 reference and outside the float32 tolerances, the SP-GAN's
 `SelfAttention` and Trainer step as they were (keys, init, forward and step
 bitwise), the benchmark's copy of the reference bitwise the plain one, and
 the imports of both references.
@@ -325,41 +327,56 @@ def test_three_steps_ema(three_steps):
 
 
 def test_update_counter_is_two_d_updates_per_g_update():
+    """Two steps take four D updates and two G updates: the Adams count
+    them."""
     state = _state(seed=9)
-    before = B.update_counts()
     step = B.make_train_step()
     for i, batch in enumerate(_batches(2)):
         step(state, batch, torch.Generator().manual_seed(i))
-    after = B.update_counts()
-    assert (after["d"] - before["d"], after["g"] - before["g"]) == (4, 2)
     assert state.step == 2
-    # each optimizer took as many steps
     d_steps = {int(s["step"]) for s in state.d_optimizer.state.values()}
     g_steps = {int(s["step"]) for s in state.g_optimizer.state.values()}
     assert d_steps == {4} and g_steps == {2}
 
 
-def _trainer(tmp_path, name, **kw):
+def _trainer(tmp_path, name, config=CFG, **kw):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the random-init FID warning
-        return Trainer(CFG, [], device=CPU, seed=7, allow_random_fid=True,
+        return Trainer(config, [], device=CPU, seed=7, allow_random_fid=True,
                        save_data_path=str(tmp_path / name), **kw)
 
 
-def test_checkpoint_save_restore_step_is_bitwise(tmp_path):
-    batches = [{k: v.numpy() for k, v in b.items()} for b in _batches()]
-    straight = _trainer(tmp_path, "a")
+def _resume_case(family: str):
+    """A family's tiny config, its host batches and its saved networks."""
+    if family == "biggan-deep":
+        return (CFG, [{k: v.numpy() for k, v in b.items()}
+                      for b in _batches()],
+                ("generator", "discriminator", "generator_ema"))
+    cfg = PyramidGANConfig().tiny()
+    rng = np.random.default_rng(11)
+    return (cfg, [synthetic_batch(cfg, 2, rng) for _ in range(STEPS)],
+            ("generator", "discriminator"))
+
+
+@pytest.mark.parametrize("family", ["biggan-deep", "sp-gan"])
+def test_checkpoint_save_restore_step_is_bitwise(tmp_path, family):
+    """A step, `save_checkpoint`, `auto_resume` in a fresh Trainer and the
+    other steps end where an uninterrupted run does, bitwise, through the
+    one family seam (train/family.py)."""
+    config, batches, nets = _resume_case(family)
+    straight = _trainer(tmp_path, "a", config)
     for batch in batches:
         straight.train_step(batch)
-    first = _trainer(tmp_path, "b")
+    first = _trainer(tmp_path, "b", config)
     first.train_step(batches[0])
     path = first.save_checkpoint(0)
-    resumed = _trainer(tmp_path, "c")
-    resumed.auto_resume(str(Path(path).parent))
+    resumed = _trainer(tmp_path, "c", config)
+    assert resumed.auto_resume(str(Path(path).parent))
     assert resumed.state.step == 1
     for batch in batches[1:]:
         resumed.train_step(batch)
-    for net in ("generator", "discriminator", "generator_ema"):
+    assert resumed.state.step == straight.state.step == STEPS
+    for net in nets:
         a = getattr(straight.state, net).state_dict()
         b = getattr(resumed.state, net).state_dict()
         assert all(torch.equal(a[k], b[k]) for k in a), net
@@ -498,6 +515,66 @@ def test_reference_imports_neither_the_port_nor_jax(path):
 
 # ------------------------------------------------------------ the CLI --
 
+# each option a family may refuse: its flags, and the Trainer's keywords
+# (None: a field of the SP-GAN's config, not a Trainer option)
+REFUSABLE = {
+    "multihost": (["--multihost"], {}),  # the Trainer reads world_size()
+    "fsdp": (["--fsdp", "2"], {"fsdp": 2}),
+    "fused_discriminator": (["--fused_d"], {"fused_discriminator": True}),
+    "remat_vgg": (["--remat_vgg"], {"remat_vgg": True}),
+    "remat_blocks": (["--remat_blocks"], None)}
+
+
+@pytest.mark.parametrize("option", list(REFUSABLE))
+@pytest.mark.parametrize("arch", ["semantic-pyramid", "biggan-deep-256"])
+def test_cli_and_trainer_refuse_from_the_familys_one_list(arch, option,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """`check_supported` and `Trainer(...)` raise the same message for each
+    option that `--arch`'s family refuses; the lookup passes the others."""
+    from semantic_pyramid_for_image_generation_torch.cli import main as cli
+    from semantic_pyramid_for_image_generation_torch.train import loop
+    from semantic_pyramid_for_image_generation_torch.train.family import (
+        family_of,
+    )
+
+    flags, trainer_options = REFUSABLE[option]
+    args = cli.build_parser().parse_args(["--arch", arch, *flags])
+    config = cli.config_from_args(args)
+    family = family_of(config)
+    if option not in family.refuses:
+        assert family_of(config, **{option: True}) is family
+        return
+    message = f"{family.refusal}; refused: {option}"
+    with pytest.raises(ValueError) as raised:
+        cli.check_supported(args)
+    assert str(raised.value) == message
+    if trainer_options is None:
+        return
+    monkeypatch.setattr(loop, "world_size",
+                        lambda: 2 if option == "multihost" else 1)
+    with pytest.raises(ValueError) as raised:
+        _trainer(tmp_path, "r", **trainer_options)
+    assert str(raised.value) == message
+
+
+def test_cli_asks_for_the_image_folder_before_it_touches_a_device(
+        monkeypatch):
+    """A BigGAN-deep command line without `--image_folder` fails in
+    `check_supported`, before `build_trainer` resolves a device."""
+    from semantic_pyramid_for_image_generation_torch.cli import main as cli
+    from semantic_pyramid_for_image_generation_torch.utils import device
+
+    def touched(*args, **kwargs):
+        raise AssertionError("a device was resolved")
+
+    monkeypatch.setattr(device, "resolve_device", touched)
+    args = cli.build_parser().parse_args(["--arch", "biggan-deep-256"])
+    for call in (cli.check_supported, cli.build_trainer):
+        with pytest.raises(ValueError, match="--image_folder"):
+            call(args)
+
+
 def test_trainer_refuses_what_biggan_deep_does_not_run(tmp_path):
     for kw in ({"fsdp": 2}, {"remat_vgg": True},
                {"fused_discriminator": True}):
@@ -551,6 +628,6 @@ def test_cli_trains_validates_and_resumes(tmp_path, monkeypatch, capsys):
         trainer = cli.build_trainer(cli.build_parser().parse_args(
             argv + ["--load_checkpoint", str(checkpoint)]))
     assert trainer.state.step == 2  # 8 images, 4 a step (2 D updates of 2)
-    with pytest.raises(ValueError, match="--fsdp"):
+    with pytest.raises(ValueError, match="refused: fsdp"):
         cli.check_supported(cli.build_parser().parse_args(
             argv + ["--fsdp", "2"]))

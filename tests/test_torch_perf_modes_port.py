@@ -66,11 +66,11 @@ from semantic_pyramid_for_image_generation_torch.ops.cuda import (
     pool,
     resize,
 )
-from semantic_pyramid_for_image_generation_torch.train import loop
 from semantic_pyramid_for_image_generation_torch.train.state import (
     init_train_state,
 )
 from semantic_pyramid_for_image_generation_torch.train.step import (
+    SP_GAN,
     batch_to_device,
     make_train_step,
 )
@@ -364,7 +364,7 @@ def test_cli_trains_two_steps_with_all_perf_modes(places_root, tmp_path,  # noqa
         seen.append(flags)
         return make_train_step(**flags)
 
-    monkeypatch.setattr(loop, "make_train_step", recorded)
+    monkeypatch.setattr(SP_GAN, "make_step", recorded)  # the Trainer's step
     save = tmp_path / "sd"
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")

@@ -14,6 +14,9 @@
     as an uninterrupted run would, and the 49-row sweep grid equal to seven
     looped 7-row generates with the same latents (1e-5 absolute in fp32:
     the same per-sample arithmetic at another batch size).
+  * the family seam (train/family.py): a stub family handed to the one
+    lookup trains an epoch, writes its grid and a checkpoint, and resumes
+    through the Trainer and train/checkpoint.py as they stand;
   * CLI: the parser's dests and defaults are the JAX package's but for
     `--device` and the port's `--arch` / `--image_folder`; `--fsdp` raises without `--multihost` and when it does not
     divide the ranks (`--multihost` runs: tests/test_torch_cli.py, with
@@ -22,6 +25,7 @@
     Places365 tree, and resumes from the checkpoint.
 """
 
+import dataclasses
 import glob
 import json
 import os
@@ -348,3 +352,139 @@ def test_import_adam_moments_and_profile_steps(tmp_path):
     target.profile_steps(batches[0], str(tmp_path / "trace"), steps=1)
     assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
     assert target.state.step == 1
+
+
+# ------------------------------------------------------------ the family --
+
+
+@dataclasses.dataclass(frozen=True)
+class StubConfig:
+    width: int = 3
+    side: int = 4
+
+
+@dataclasses.dataclass
+class StubState:
+    generator: torch.nn.Module
+    discriminator: torch.nn.Module
+    g_optimizer: torch.optim.Optimizer
+    d_optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+class StubFamily:
+    """The least a trained model supplies (train/family.py): linear G and
+    D over flat images, one update of each a step."""
+
+    refusal, refuses = "the stub trains alone", ("fsdp",)
+
+    def init_state(self, config, device, seed, lr):
+        torch.manual_seed(seed)
+        pixels = config.side * config.side * 3
+        generator = torch.nn.Linear(config.width, pixels)
+        discriminator = torch.nn.Linear(pixels, 1)
+        generator.config = config
+        return StubState(generator, discriminator,
+                          torch.optim.Adam(generator.parameters(), lr=lr),
+                          torch.optim.Adam(discriminator.parameters(), lr=lr))
+
+    def make_step(self, **options):
+        def step(state, batch, rng):
+            real = batch["images"].flatten(1).float()
+            noise = torch.randn((real.shape[0], state.generator.in_features),
+                                generator=rng)
+            loss_real = (state.discriminator(real) - 1).square().mean()
+            loss_fake = state.discriminator(
+                state.generator(noise).detach()).square().mean()
+            state.d_optimizer.zero_grad()
+            (loss_real + loss_fake).backward()
+            state.d_optimizer.step()
+            loss_g = (state.discriminator(state.generator(noise))
+                      - 1).square().mean()
+            state.g_optimizer.zero_grad()
+            loss_g.backward(inputs=list(state.generator.parameters()))
+            state.g_optimizer.step()
+            state.step += 1
+            return state, {"loss_discriminator_real": loss_real.detach(),
+                           "loss_discriminator_fake": loss_fake.detach(),
+                           "loss_generator": loss_g.detach()}
+        return step
+
+    def hyperparameters(self, lr, w_rec, w_div):
+        return {"lr": str(lr)}
+
+    def progress(self, fid, host):
+        return f"FID={fid:.4f}, Loss G={host['loss_generator']:.4f}"
+
+    def latent_dim(self, config):
+        return config.width
+
+    def sample(self, state, batch, noise):
+        side = state.generator.config.side
+        with torch.no_grad():
+            return state.generator(noise).reshape(-1, side, side, 3)
+
+    def grid(self, config, state, images, labels, rng, device):
+        noise = torch.randn((images.shape[0], config.width), generator=rng)
+        return self.sample(state, {}, noise).numpy(), images.shape[0]
+
+    def checkpoint(self, state):
+        return {"generator": state.generator.state_dict(),
+                "discriminator": state.discriminator.state_dict(),
+                "generator_optimizer": state.g_optimizer.state_dict(),
+                "discriminator_optimizer": state.d_optimizer.state_dict(),
+                "step": state.step}
+
+    def restore(self, path, state):
+        checkpoint = torch.load(path, weights_only=False)
+        state.generator.load_state_dict(checkpoint["generator"])
+        state.discriminator.load_state_dict(checkpoint["discriminator"])
+        state.g_optimizer.load_state_dict(checkpoint["generator_optimizer"])
+        state.d_optimizer.load_state_dict(
+            checkpoint["discriminator_optimizer"])
+        state.step = checkpoint["step"]
+        return state
+
+
+def test_a_stub_family_trains_checkpoints_and_resumes(tmp_path,
+                                                      monkeypatch):
+    """A new model costs one family object and its entry in the one
+    lookup: the Trainer and train/checkpoint.py stay as they are. An epoch
+    of two steps logs both, writes the family's grid and checkpoint_000.pt;
+    `auto_resume` in a fresh Trainer restores it bitwise; the family's
+    refusal is raised."""
+    from semantic_pyramid_for_image_generation_torch.train import family
+
+    monkeypatch.setitem(family.FAMILIES, StubConfig, StubFamily())
+    rng = np.random.default_rng(0)
+    batches = [{"images": rng.random((2, 4, 4, 3), np.float32),
+                "labels": np.arange(2)} for _ in range(2)]
+
+    def trainer(name, seed, **kw):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the random-init FID warning
+            return Trainer(StubConfig(), batches, batches[:1], lr=1e-2,
+                           device=CPU, seed=seed, allow_random_fid=True,
+                           save_data_path=str(tmp_path / name), **kw)
+
+    trained = trainer("a", seed=1)
+    trained.train(epochs=1, validate_at_start=False, progress=False)
+    assert trained.state.step == 2
+    assert len(trained.logger.metrics["loss_generator"]) == 2
+    assert trained.logger.hyperparameter["lr"] == "0.01"
+    assert trained.last_grid.shape == (7, 4, 4, 3)
+    assert glob.glob(os.path.join(trained.paths["plots"], "*.png"))
+    resumed = trainer("b", seed=2)
+    assert resumed.auto_resume(trained.paths["models"])
+    assert resumed.state.step == 2
+    for net in ("generator", "discriminator"):
+        a = getattr(trained.state, net).state_dict()
+        b = getattr(resumed.state, net).state_dict()
+        assert all(torch.equal(a[k], b[k]) for k in a), net
+    for opt in ("g_optimizer", "d_optimizer"):
+        a = getattr(trained.state, opt).state_dict()["state"]
+        b = getattr(resumed.state, opt).state_dict()["state"]
+        assert all(torch.equal(a[i][m], b[i][m]) for i in a for m in a[i])
+    with pytest.raises(ValueError, match="the stub trains alone; refused: "
+                                         "fsdp"):
+        trainer("c", seed=3, fsdp=2)
